@@ -1,0 +1,303 @@
+"""Smoke run of the PyTorch/CUDA port (``pycollo_tpu_torch``) on one GPU.
+
+Run from the root of the repository, on a machine with one NVIDIA H100::
+
+    python3 chip_smoke.py
+
+Phases, each of which exits non-zero on failure:
+
+1. device: requires ``torch.cuda.is_available()`` (no CPU fallback) and
+   prints the card's name and power limit as ``nvidia-smi`` reports them;
+2. build: compiles ``pycollo_tpu_torch/csrc/block_chol.cu`` with ``nvcc``;
+3. kernel: holds the Cholesky-inverse kernel against its plain PyTorch
+   version on the card, and times both;
+4. slice: builds cart-pole swing-up on the default mesh through the port,
+   solves a batch of 256 perturbed instances on the card through the
+   kernel, and re-solves 8 of them on the CPU through the plain f64 path
+   (no kernel, exact Newton steps), whose objectives at least 7 of the 8
+   must match to 1e-4; the mixed path on the CPU (the kernel's plain
+   version) is re-solved too, and its agreement printed.
+
+The line before the last is a JSON object describing every kernel of the
+path; the last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+#: f32 tolerance of the kernel against its plain version
+KERNEL_TOL = 2e-4
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def phase_device():
+    import torch
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0].strip()
+    print(f"card: {card}", flush=True)
+    return card
+
+
+def phase_build():
+    from pycollo_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.load("block_chol.cu")
+    print(f"build: block_chol.cu built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def _spd(rng, b, n):
+    M = rng.standard_normal((b, n, n))
+    return M @ np.swapaxes(M, -1, -2) + 0.5 * np.eye(n)
+
+
+def _median_ms(fn, inputs, samples=10, inner=20):
+    """Milliseconds per call: the median over ``samples`` CUDA-event
+    windows, each of ``inner`` back-to-back calls cycling fresh inputs."""
+    import torch
+    for A in inputs[:2]:
+        fn(A)
+    torch.cuda.synchronize()
+    times = []
+    for s in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for r in range(inner):
+            fn(inputs[(s * inner + r) % len(inputs)])
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def _chol_linv_library(A):
+    """The library route to the same result as ``blocked_chol_linv``:
+    cuSOLVER Cholesky + triangular solve in f32 (timing comparison only)."""
+    import torch
+    L, _ = torch.linalg.cholesky_ex(A)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return torch.linalg.solve_triangular(L, eye.expand_as(A), upper=False)
+
+
+def phase_kernel():
+    import torch
+    from pycollo_tpu_torch.ops.block_chol import (blocked_chol_linv, chol_inv,
+                                                  chol_inv_reference)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    err_main = None
+    for n in (3, 8, 15, 37, 48):
+        for B in (37, 1536):
+            A = torch.tensor(_spd(rng, B, n), device=dev)
+            out = chol_inv(A)
+            ref = chol_inv_reference(A)
+            torch.cuda.synchronize()
+            check(out.dtype == torch.float32 and out.shape == (B, n, n),
+                  f"chol_inv output {out.dtype} {tuple(out.shape)}")
+            check(bool(torch.isfinite(out).all()),
+                  f"chol_inv non-finite at B={B} n={n}")
+            err = float((out - ref).abs().max())
+            ok = torch.allclose(out, ref, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+            check(ok, f"chol_inv vs plain at B={B} n={n}: max err {err:.3e}")
+            iu = torch.triu_indices(n, n, offset=1, device=dev)
+            check(bool((out[:, iu[0], iu[1]] == 0).all()),
+                  f"chol_inv nonzero above the diagonal at B={B} n={n}")
+            if (B, n) == (1536, 37):
+                err_main = err
+            print(f"kernel: chol_inv B={B} n={n} max|kernel-plain| = "
+                  f"{err:.3e}", flush=True)
+    # Non-PD isolation: one indefinite instance, NaN there only.
+    A = _spd(rng, 37, 37)
+    A[5] -= 100.0 * np.eye(37)
+    out = chol_inv(torch.tensor(A, device=dev))
+    torch.cuda.synchronize()
+    check(bool(torch.isnan(out[5]).any()), "indefinite instance not NaN")
+    rest = torch.ones(37, dtype=torch.bool)
+    rest[5] = False
+    check(bool(torch.isfinite(out[rest.to(dev)]).all()),
+          "NaN leaked outside the indefinite instance")
+    print("kernel: NaN isolation ok", flush=True)
+
+    # blocked_chol_linv at the main path's shape, against f64, after Jacobi
+    # equilibration (what the solver factors).
+    A = _spd(rng, 1536, 148) / 148.0 + 0.5 * np.eye(148)
+    d = 1.0 / np.sqrt(np.einsum("bii->bi", A))
+    A = A * d[:, :, None] * d[:, None, :]
+    A_d = torch.tensor(A, device=dev)
+    diag_L, Linv = blocked_chol_linv(A_d)
+    L64 = torch.linalg.cholesky(A_d)
+    eye = torch.eye(148, dtype=torch.float64, device=dev).expand_as(A_d)
+    Linv64 = torch.linalg.solve_triangular(L64, eye, upper=False)
+    torch.cuda.synchronize()
+    err_blk = float((Linv.double() - Linv64).abs().max())
+    check(err_blk < KERNEL_TOL, f"blocked_chol_linv vs f64: {err_blk:.3e}")
+    check(bool(torch.allclose(diag_L.double(),
+                              torch.diagonal(L64, dim1=-2, dim2=-1),
+                              rtol=KERNEL_TOL, atol=KERNEL_TOL)),
+          "blocked_chol_linv diagonal vs f64")
+    R = Linv.double() @ A_d @ Linv.double().transpose(-1, -2)
+    err_id = float((R - eye).abs().max())
+    check(err_id < 5e-4, f"blocked_chol_linv L^-1 A L^-T - I: {err_id:.3e}")
+    print(f"kernel: blocked_chol_linv (1536,148,148) max|Linv-f64| = "
+          f"{err_blk:.3e}, max|L^-1 A L^-T - I| = {err_id:.3e}", flush=True)
+
+    # Times at the main path's shapes, medians over fresh inputs.
+    fresh37 = [torch.tensor(_spd(rng, 1536, 37), device=dev,
+                            dtype=torch.float32) for _ in range(6)]
+    ms = _median_ms(chol_inv, fresh37)
+    plain_ms = _median_ms(chol_inv_reference, fresh37)
+    fresh148 = []
+    for _ in range(4):
+        A = _spd(rng, 1536, 148) / 148.0 + 0.5 * np.eye(148)
+        fresh148.append(torch.tensor(A, device=dev, dtype=torch.float32))
+    blk_ms = _median_ms(blocked_chol_linv, fresh148, samples=6, inner=5)
+    lib_ms = _median_ms(_chol_linv_library, fresh148, samples=6, inner=5)
+    print(f"kernel: timing (1536,37,37) chol_inv {ms:.4f} ms, "
+          f"chol_inv_reference {plain_ms:.4f} ms; (1536,148,148) "
+          f"blocked_chol_linv {blk_ms:.4f} ms, cholesky_ex + "
+          f"solve_triangular {lib_ms:.4f} ms", flush=True)
+    return dict(max_abs_err=err_main, ms=ms, plain_ms=plain_ms)
+
+
+#: the mixed-precision configuration ``bench.py`` scores
+SLICE_OPTIONS = dict(tol=1e-6, max_iter=80, kkt_precision="mixed",
+                     dc_floor=1e-7, dense_gmres_iters=12, eval_dtype="f32")
+SLICE_BATCH = 256
+#: instances re-solved on the CPU through the plain path
+CPU_CHECK = 8
+#: The problem is nonconvex, and the mixed path takes inexact Newton steps
+#: whose rounding differs between the kernel and its plain version, so an
+#: instance can settle in a neighbouring local solution (as in
+#: tests/integration/test_mixed_precision.py): one of the 8 may differ.
+CPU_AGREE = 7
+
+
+def _theta_chunk(it, B, seed):
+    """Perturbed initial states (the recipe of ``bench.py``): q1_0 in
+    [-0.25, 0.25], q2_0 in [-0.3, 0.3]."""
+    rng = np.random.default_rng(seed)
+    pl = it.layout.phases[0]
+    theta = np.tile(it.theta_default, (B, 1))
+    theta[:, pl.y_off + 0 * pl.N] = rng.uniform(-0.25, 0.25, B)
+    theta[:, pl.y_off + 1 * pl.N] = rng.uniform(-0.3, 0.3, B)
+    return theta
+
+
+def phase_slice():
+    import torch
+    sys.path.insert(0, str(ROOT / "examples"))
+    from cart_pole_swing_up_torch import build_problem
+    from pycollo_tpu_torch.ops.block_chol import chol_inv
+    from pycollo_tpu_torch.parallel.batch import solve_batched
+    from pycollo_tpu_torch.solver.ipm import IPMOptions
+
+    t0 = time.perf_counter()
+    problem = build_problem()
+    problem.settings.console_out_progress = False
+    problem.settings.nlp_tolerance = 1e-6
+    problem.initialise()
+    it = problem.backend.mesh_iterations[0]
+    check(it.layout.phases[0].N == 31 and it.n_free == 148,
+          f"unexpected cart-pole size N={it.layout.phases[0].N} "
+          f"n={it.n_free}")
+    it.build_solver(IPMOptions(**SLICE_OPTIONS))
+    print(f"slice: cart-pole built (N=31, n=148) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    cuda = [torch.device("cuda")]
+
+    # Warm-up on a chunk that the measured run does not reuse.
+    warm = solve_batched(problem.backend, devices=cuda,
+                         theta_batch=_theta_chunk(it, SLICE_BATCH, 1000))
+    print(f"slice: warm-up solve {warm.solve_time:.3f} s", flush=True)
+
+    theta = _theta_chunk(it, SLICE_BATCH, 0)
+    chol_inv.launches = 0
+    res = solve_batched(problem.backend, devices=cuda, theta_batch=theta)
+    launches = chol_inv.launches
+    check(launches > 0, "the GPU solve launched the chol_inv kernel 0 times")
+    check(res.x_full.shape == (SLICE_BATCH, it.layout.n_full)
+          and np.isfinite(res.x_full).all(),
+          "non-finite or misshapen solutions")
+    conv = float(res.converged.mean())
+    iters = float(res.iterations.mean())
+    kkt99 = float(np.quantile(res.kkt_error, 0.99))
+    rate = SLICE_BATCH / res.solve_time
+    check(conv >= 0.99, f"converged fraction {conv} < 0.99")
+
+    def cpu_agreement(options):
+        cpu = solve_batched(problem.backend, devices=[torch.device("cpu")],
+                            theta_batch=theta[:CPU_CHECK],
+                            options=IPMOptions(**options))
+        check(cpu.converged.all(), f"CPU re-solve ({options}) not converged")
+        rel = np.abs(cpu.objective - res.objective[:CPU_CHECK]) \
+            / np.abs(cpu.objective)
+        return int((rel < 1e-4).sum()), rel
+
+    agree64, rel64 = cpu_agreement(dict(tol=1e-6, max_iter=80))
+    agree_mx, rel_mx = cpu_agreement(SLICE_OPTIONS)
+    print(f"slice: GPU objectives vs CPU f64 re-solves, relative: {rel64}",
+          flush=True)
+    print(f"slice: GPU objectives vs CPU mixed re-solves (plain version of "
+          f"the kernel), relative: {rel_mx}", flush=True)
+    check(agree64 >= CPU_AGREE,
+          f"only {agree64}/{CPU_CHECK} CPU f64 re-solves agree to 1e-4")
+    return dict(launches=launches, conv=conv, iters=iters, kkt99=kkt99,
+                rate=rate, solve_s=res.solve_time, agree64=agree64,
+                agree_mx=agree_mx)
+
+
+def main():
+    sys.path.insert(0, str(ROOT))
+    card = phase_device()
+    phase_build()
+    kern = phase_kernel()
+    sl = phase_slice()
+    import torch
+    print(f"slice: {card}: batch {SLICE_BATCH} solved in "
+          f"{sl['solve_s']:.3f} s = {sl['rate']:.2f} solves/s; converged "
+          f"{sl['conv']:.4f}, mean iterations {sl['iters']:.2f}, KKT p99 "
+          f"{sl['kkt99']:.3e}; chol_inv launches {sl['launches']}; CPU "
+          f"re-solves agreeing to 1e-4: f64 {sl['agree64']}/{CPU_CHECK}, "
+          f"mixed {sl['agree_mx']}/{CPU_CHECK}", flush=True)
+    print(json.dumps({"kernels": [{
+        "name": "chol_inv",
+        "route": "cuda",
+        "source": "pycollo_tpu_torch/csrc/block_chol.cu",
+        "replaces": "pycollo_tpu/ops/block_chol.py:63",
+        "launches": sl["launches"],
+        "max_abs_err": kern["max_abs_err"],
+        "ms": kern["ms"],
+        "plain_ms": kern["plain_ms"],
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,170 @@
+"""Batched small-block Cholesky inverse: CUDA kernel, plain version, blocks.
+
+:func:`chol_inv` returns ``L^{-1}`` of the Cholesky factors of a stack of
+small SPD matrices (n <= :data:`MAX_BLOCK_N`).  On a CUDA tensor it launches
+the hand-written Hopper kernel ``csrc/block_chol.cu`` (the counterpart of
+the Pallas kernel ``batched_chol_inv`` in ``pycollo_tpu/ops/block_chol.py``);
+on a CPU tensor it runs :func:`chol_inv_reference`, the plain PyTorch
+version.  :func:`blocked_chol_linv` extends it to any n: the kernel factors
+and inverts each diagonal block, and plain f32 batched matmuls do the
+panels, trailing updates and block triangular inversion.  It is the
+factorization of the interior-point solver's ``kkt_precision="mixed"`` path
+(``solver/linalg.py``), where a non-PD instance must show up as a NaN or
+non-positive pivot in ``diag_L`` and never as a silently wrong factor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+#: largest block the kernel takes (the shared-memory tile and the lanes'
+#: row ownership are sized for it)
+MAX_BLOCK_N = 48
+
+
+def _check_stack(A: torch.Tensor) -> None:
+    if A.dim() != 3 or A.shape[-1] != A.shape[-2]:
+        raise ValueError(f"expected a (B, n, n) stack, got {tuple(A.shape)}")
+    if not 1 <= A.shape[-1] <= MAX_BLOCK_N:
+        raise ValueError(f"block size n={A.shape[-1]} outside 1..{MAX_BLOCK_N}")
+    if not A.is_floating_point():
+        raise TypeError(f"expected a floating tensor, got {A.dtype}")
+
+
+def _kernel_fn():
+    lib = _build.load("block_chol.cu")
+    fn = lib.pycollo_chol_inv_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def chol_inv(A: torch.Tensor) -> torch.Tensor:
+    """``L^{-1}`` for ``A = L L^T``, A a (B, n, n) SPD stack, n <= 48.
+
+    Returns a (B, n, n) float32 lower-triangular stack with exact zeros
+    above the diagonal; the input is cast to float32.  An instance that is
+    not positive definite gives NaN (or a zero pivot) in that instance
+    only.  A CUDA tensor launches the kernel (and counts the launch in
+    ``chol_inv.launches``); a CPU tensor runs :func:`chol_inv_reference`.
+    """
+    _check_stack(A)
+    if A.device.type == "cpu":
+        return chol_inv_reference(A)
+    if A.device.type != "cuda":
+        raise ValueError(f"chol_inv takes CPU or CUDA tensors, got {A.device}")
+    if not A.is_contiguous():
+        raise ValueError("chol_inv needs a contiguous stack")
+    A32 = A.to(torch.float32)
+    out = torch.empty_like(A32)
+    B, n = A32.shape[0], A32.shape[-1]
+    if B == 0:
+        return out
+    fn = _kernel_fn()
+    with torch.cuda.device(A32.device):
+        stream = torch.cuda.current_stream(A32.device).cuda_stream
+        err = fn(A32.data_ptr(), out.data_ptr(), B, n, stream)
+    if err != 0:
+        raise RuntimeError(f"block_chol kernel launch failed: CUDA error {err} "
+                           f"(B={B}, n={n})")
+    chol_inv.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (a plain counter, set to 0 by callers
+#: that want to prove a run went through the kernel)
+chol_inv.launches = 0
+
+
+def chol_inv_reference(A: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`chol_inv`: ``cholesky_ex`` + triangular solve
+    in float32.  Instances whose factorization fails (``info != 0``) come out
+    all NaN, which keeps the kernel's failure contract."""
+    _check_stack(A)
+    A32 = A.to(torch.float32)
+    L, info = torch.linalg.cholesky_ex(A32)
+    eye = torch.eye(A32.shape[-1], dtype=torch.float32,
+                    device=A32.device).expand_as(A32)
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    return torch.where((info == 0)[:, None, None], Linv,
+                       torch.full_like(Linv, float("nan")))
+
+
+def blocked_chol_linv(A: torch.Tensor, block: int | None = None):
+    """Cholesky factor diagonal and full triangular inverse of a SPD stack.
+
+    ``A``: (..., n, n), any n.  Returns ``(diag_L, Linv)`` with
+    ``A = L L^T``: ``diag_L`` (..., n), the factor diagonal (for the caller's
+    positive-pivot check), and ``Linv`` (..., n, n) lower-triangular float32,
+    so a solve is two matrix products ``x = Linv^T (Linv b)``.
+
+    The blocks are ``block`` wide (default: the fewest blocks of at most
+    :data:`MAX_BLOCK_N`); the last is padded with the identity.  All
+    leading axes are folded into the kernel's batch.  A non-PD instance
+    yields NaN in its diagonal-block inverse, which propagates through
+    every later product of that instance.
+    """
+    *batch, n, n2 = A.shape
+    if n != n2:
+        raise ValueError(f"expected square matrices, got {tuple(A.shape)}")
+    if block is None:
+        nb = max(1, -(-n // MAX_BLOCK_N))
+        block = -(-n // nb)
+    else:
+        nb = -(-n // block)
+    n_pad = nb * block
+    B = 1
+    for d in batch:
+        B *= d
+    dev = A.device
+    Af = A.reshape(B, n, n).to(torch.float32)
+    if n_pad != n:
+        P = torch.zeros((B, n_pad, n_pad), dtype=torch.float32, device=dev)
+        P[:, :n, :n] = Af
+        idx = torch.arange(n, n_pad, device=dev)
+        P[:, idx, idx] = 1.0
+        Af = P
+    b = block
+
+    def blk(i, j):
+        return Af[:, i * b:(i + 1) * b, j * b:(j + 1) * b]
+
+    work = {(i, j): blk(i, j) for i in range(nb) for j in range(i + 1)}
+    L = [[None] * nb for _ in range(nb)]
+    Dinv = [None] * nb
+    for j in range(nb):
+        Dinv[j] = chol_inv(work[(j, j)].contiguous())
+        for i in range(j + 1, nb):
+            # L_ij = A'_ij @ L_jj^{-T}
+            L[i][j] = work[(i, j)] @ Dinv[j].transpose(-1, -2)
+        for i in range(j + 1, nb):
+            for k in range(j + 1, i + 1):
+                work[(i, k)] = work[(i, k)] - L[i][j] @ L[k][j].transpose(-1, -2)
+
+    # Block triangular inversion:
+    # Linv_jj = Dinv_j;  Linv_ij = -Dinv_i (sum_{k=j}^{i-1} L_ik Linv_kj)
+    Linv_blocks = [[None] * nb for _ in range(nb)]
+    for j in range(nb):
+        Linv_blocks[j][j] = Dinv[j]
+        for i in range(j + 1, nb):
+            acc = L[i][j] @ Linv_blocks[j][j]
+            for k in range(j + 1, i):
+                acc = acc + L[i][k] @ Linv_blocks[k][j]
+            Linv_blocks[i][j] = -(Dinv[i] @ acc)
+
+    Linv = torch.zeros((B, n_pad, n_pad), dtype=torch.float32, device=dev)
+    for i in range(nb):
+        for j in range(i + 1):
+            Linv[:, i * b:(i + 1) * b, j * b:(j + 1) * b] = Linv_blocks[i][j]
+    Linv = Linv[:, :n, :n]
+    # diag(L_jj) = 1 / diag(L_jj^{-1})
+    dinv_diag = torch.cat([torch.diagonal(Dinv[j], dim1=-2, dim2=-1)
+                           for j in range(nb)], dim=-1)[:, :n]
+    diag_L = 1.0 / dinv_diag
+    return (diag_L.reshape(*batch, n),
+            Linv.reshape(*batch, n, n))
