@@ -16,7 +16,18 @@ Phases, each of which exits non-zero on failure:
    kernel, and re-solves 8 of them on the CPU through the plain f64 path
    (no kernel, exact Newton steps), whose objectives at least 7 of the 8
    must match to 1e-4; the mixed path on the CPU (the kernel's plain
-   version) is re-solved too, and its agreement printed.
+   version) is re-solved too, and its agreement printed;
+5. refine: ``problem.solve(device="cuda")`` (the ph-adaptive mesh
+   refinement loop, every NLP solve on the card in float64) on the
+   brachistochrone, cart-pole swing-up and the hypersensitive problem at
+   their published sizes, each held against its stored float64 oracle
+   (``tests/data/trajectory_*.npz``: objective to 1e-6, states and controls
+   to 1e-5, 1e-4 for the hypersensitive problem, see ``REFINE_PROBLEMS``),
+   the brachistochrone also against GPOPS-II's 0.82434 (1e-4);
+   then a batch of 256 perturbed cart-pole instances on the refined mesh
+   through the kernel (mixed path), with the gates of the slice phase
+   except the converged fraction (see ``REFINED_CONVERGED_MIN``); the
+   CPU f64 re-solves take the first 8 converged instances.
 
 The line before the last is a JSON object describing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -111,7 +122,7 @@ def phase_kernel():
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     err_main = None
-    for n in (3, 8, 15, 37, 48):
+    for n in (3, 8, 15, 37, 45, 48):
         for B in (37, 1536):
             A = torch.tensor(_spd(rng, B, n), device=dev)
             out = chol_inv(A)
@@ -177,9 +188,15 @@ def phase_kernel():
         fresh148.append(torch.tensor(A, device=dev, dtype=torch.float32))
     blk_ms = _median_ms(blocked_chol_linv, fresh148, samples=6, inner=5)
     lib_ms = _median_ms(_chol_linv_library, fresh148, samples=6, inner=5)
+    # The refined-mesh batch's diagonal blocks (14 of 45 in 628).
+    fresh45 = [torch.tensor(_spd(rng, 1536, 45), device=dev,
+                            dtype=torch.float32) for _ in range(6)]
+    ms45 = _median_ms(chol_inv, fresh45)
+    plain45 = _median_ms(chol_inv_reference, fresh45)
     print(f"kernel: timing (1536,37,37) chol_inv {ms:.4f} ms, "
-          f"chol_inv_reference {plain_ms:.4f} ms; (1536,148,148) "
-          f"blocked_chol_linv {blk_ms:.4f} ms, cholesky_ex + "
+          f"chol_inv_reference {plain_ms:.4f} ms; (1536,45,45) chol_inv "
+          f"{ms45:.4f} ms, chol_inv_reference {plain45:.4f} ms; "
+          f"(1536,148,148) blocked_chol_linv {blk_ms:.4f} ms, cholesky_ex + "
           f"solve_triangular {lib_ms:.4f} ms", flush=True)
     return dict(max_abs_err=err_main, ms=ms, plain_ms=plain_ms)
 
@@ -271,25 +288,182 @@ def phase_slice():
                 agree_mx=agree_mx)
 
 
+#: (name, example module, stored oracle, trajectory tolerance) of the
+#: refinement phase.  The tolerances are those of
+#: tests/integration/test_trajectory_oracle.py (objective 1e-6, states and
+#: controls 1e-5), except for the hypersensitive problem's trajectories:
+#: its final-mesh NLP solved by the JAX package on the CPU and by the port
+#: on the card differ by 2.2e-5 in the state near t = 9950, both at KKT
+#: errors below 1e-8, and the JAX package's own CPU solve is 9.3e-6 off
+#: the stored oracle; so they are held at 1e-4 (PERF.md, Findings).
+REFINE_PROBLEMS = (
+    ("brachistochrone", "brachistochrone_torch", "brachistochrone", 1e-5),
+    ("cart-pole", "cart_pole_swing_up_torch", "cart_pole", 1e-5),
+    ("hypersensitive", "hypersensitive_problem_torch", "hypersensitive",
+     1e-4))
+ORACLE_OBJ_RTOL = 1e-6
+GPOPS_BRACHISTOCHRONE = 0.82434
+#: least converged fraction of the refined-mesh batch (K=21, N=127,
+#: n_free=628).  The JAX package's mixed path does not reach 0.99 there:
+#: on the CPU it converges 167 of these 256 instances through its library
+#: f32 Cholesky, and 37 through its blocked explicit-inverse factorization
+#: (``blocked_chol_linv``, the route of its Pallas kernel, which
+#: ``chol_inv`` ports).  The port is held to what the reference reaches on
+#: the same route (PERF.md, Findings).
+REFINED_CONVERGED_MIN = 37 / 256
+
+
+def _hold_to_oracle(name, solution, oracle, traj_tol):
+    """Objective, end times, states and controls of phase 0 against a
+    stored float64 oracle, normalised as test_trajectory_oracle.py does."""
+    stored = np.load(ROOT / "tests" / "data" / f"trajectory_{oracle}.npz")
+    obj_ref = float(stored["objective"])
+    obj_err = abs(solution.objective - obj_ref) / abs(obj_ref)
+    check(obj_err <= ORACLE_OBJ_RTOL,
+          f"{name}: objective {solution.objective!r} vs oracle {obj_ref!r} "
+          f"(relative {obj_err:.3e})")
+    y_q, u_q = solution.interpolate_phase(0, stored["tau"])
+    errs = {}
+    for got, ref, label in ((y_q, stored["y"], "state"),
+                            (u_q, stored["u"], "control")):
+        check(got.shape == ref.shape and np.isfinite(got).all(),
+              f"{name}: {label} trajectory {got.shape}, finite "
+              f"{np.isfinite(got).all()}")
+        scale = np.maximum(np.abs(ref).max(axis=1, keepdims=True), 1.0)
+        err = np.abs(got - ref) / scale
+        errs[label] = float(err.max())
+        at = float(stored["tau"][err.max(axis=0).argmax()])
+        check(errs[label] <= traj_tol,
+              f"{name}: {label} trajectory off the oracle by "
+              f"{errs[label]:.3e} (at tau {at:.3f})")
+    for label, got, key in (("t0", solution.initial_time[0], "t0"),
+                            ("tF", solution.final_time[0], "tF")):
+        check(abs(float(got) - float(stored[key])) <= traj_tol,
+              f"{name}: {label} {got} vs oracle {float(stored[key])}")
+    return obj_err, errs
+
+
+def _refine_one(name, module, oracle, traj_tol):
+    import importlib
+
+    import torch
+    problem = importlib.import_module(module).build_problem()
+    problem.settings.console_out_progress = False
+    t0 = time.perf_counter()
+    solution = problem.solve(device=torch.device("cuda"))
+    wall = time.perf_counter() - t0
+    check(problem.mesh_tolerance_met, f"{name}: mesh tolerance not met")
+    for r in problem.mesh_iterations:
+        it = r.iteration
+        spans = it.profiler.spans
+        solve_s = spans["NLP solve"].duration
+        build_s = sum(sp.duration for key, sp in spans.items()
+                      if key != "NLP solve")
+        check(r.ipm_result.x.device.type == "cuda",
+              f"{name}: mesh iteration {it.number} solved on "
+              f"{r.ipm_result.x.device}")
+        print(f"refine: {name} mesh iteration {it.number}: "
+              f"K={[t.K for t in it.tables]} N={[t.N for t in it.tables]} "
+              f"n_free={it.n_free} IPM iterations "
+              f"{int(r.ipm_result.iterations)} KKT "
+              f"{float(r.ipm_result.kkt_error):.3e} build {build_s:.3f} s "
+              f"solve {solve_s:.3f} s", flush=True)
+    obj_err, errs = _hold_to_oracle(name, solution, oracle, traj_tol)
+    if name == "brachistochrone":
+        gp = abs(solution.objective - GPOPS_BRACHISTOCHRONE) \
+            / GPOPS_BRACHISTOCHRONE
+        check(gp <= 1e-4, f"brachistochrone objective "
+              f"{solution.objective} vs GPOPS-II 0.82434: {gp:.3e}")
+    print(f"refine: {name}: {len(problem.mesh_iterations)} mesh iterations "
+          f"in {wall:.3f} s on the card; objective {solution.objective!r} "
+          f"(oracle relative {obj_err:.3e}); max trajectory error state "
+          f"{errs['state']:.3e}, control {errs['control']:.3e}", flush=True)
+    return problem
+
+
+def _refined_batch(problem):
+    """The kernel on the refined mesh: a batch of perturbed instances of
+    the last mesh iteration through the mixed path, as phase_slice."""
+    import torch
+    from pycollo_tpu_torch.ops.block_chol import MAX_BLOCK_N, chol_inv
+    from pycollo_tpu_torch.parallel.batch import solve_batched
+    from pycollo_tpu_torch.solver.ipm import IPMOptions
+
+    it = problem.backend.mesh_iterations[-1]
+    theta = _theta_chunk(it, SLICE_BATCH, 0)
+    chol_inv.launches = 0
+    res = solve_batched(problem.backend, devices=[torch.device("cuda")],
+                        theta_batch=theta,
+                        options=IPMOptions(**SLICE_OPTIONS))
+    launches = chol_inv.launches
+    nv = it._solver.dims["nv"]
+    conv = float(res.converged.mean())
+    # Most instances stop unconverged here (see REFINED_CONVERGED_MIN), so
+    # the f64 re-solves check the first CPU_CHECK converged ones.
+    idx = np.flatnonzero(res.converged)[:CPU_CHECK]
+    check(len(idx) == CPU_CHECK,
+          f"refined-mesh batch: only {len(idx)} instances converged")
+    cpu = solve_batched(problem.backend, devices=[torch.device("cpu")],
+                        theta_batch=theta[idx],
+                        options=IPMOptions(tol=1e-6, max_iter=80))
+    rel = np.abs(cpu.objective - res.objective[idx]) / np.abs(cpu.objective)
+    agree = int((rel < 1e-4).sum())
+    print(f"refine: refined-mesh GPU objectives of converged instances "
+          f"{idx.tolist()} vs CPU f64 re-solves, relative: {rel}",
+          flush=True)
+    print(f"refine: refined-mesh batch: K={it.tables[0].K} "
+          f"N={it.tables[0].N} n_free={it.n_free}, "
+          f"{max(1, -(-nv // MAX_BLOCK_N))} diagonal blocks of the "
+          f"{nv}x{nv} condensed matrix; batch {SLICE_BATCH} solved in "
+          f"{res.solve_time:.3f} s = {SLICE_BATCH / res.solve_time:.2f} "
+          f"solves/s; converged {conv:.4f}, mean iterations "
+          f"{float(res.iterations.mean()):.2f}, max "
+          f"{int(res.iterations.max())}, KKT p99 "
+          f"{float(np.quantile(res.kkt_error, 0.99)):.3e}; chol_inv "
+          f"launches {launches}; CPU f64 re-solves of converged instances "
+          f"agreeing to 1e-4: {agree}/{CPU_CHECK}", flush=True)
+    check(launches > 0, "the refined-mesh batch launched chol_inv 0 times")
+    check(res.x_full.shape == (SLICE_BATCH, it.layout.n_full)
+          and np.isfinite(res.x_full).all(),
+          "refined-mesh batch: non-finite or misshapen solutions")
+    check(conv >= REFINED_CONVERGED_MIN,
+          f"refined-mesh batch: converged fraction {conv} < "
+          f"{REFINED_CONVERGED_MIN}")
+    check(cpu.converged.all(), "refined-mesh CPU f64 re-solve not converged")
+    check(agree >= CPU_AGREE,
+          f"refined mesh: only {agree}/{CPU_CHECK} CPU f64 re-solves agree "
+          f"to 1e-4")
+    return dict(launches=launches)
+
+
+def phase_refine():
+    sys.path.insert(0, str(ROOT / "examples"))
+    problems = {spec[0]: _refine_one(*spec) for spec in REFINE_PROBLEMS}
+    return _refined_batch(problems["cart-pole"])
+
+
 def main():
     sys.path.insert(0, str(ROOT))
     card = phase_device()
     phase_build()
     kern = phase_kernel()
     sl = phase_slice()
-    import torch
     print(f"slice: {card}: batch {SLICE_BATCH} solved in "
           f"{sl['solve_s']:.3f} s = {sl['rate']:.2f} solves/s; converged "
           f"{sl['conv']:.4f}, mean iterations {sl['iters']:.2f}, KKT p99 "
           f"{sl['kkt99']:.3e}; chol_inv launches {sl['launches']}; CPU "
           f"re-solves agreeing to 1e-4: f64 {sl['agree64']}/{CPU_CHECK}, "
           f"mixed {sl['agree_mx']}/{CPU_CHECK}", flush=True)
+    rf = phase_refine()
+    import torch
+    print(f"chol_inv launches per path: slice {sl['launches']}, refined-mesh "
+          f"batch {rf['launches']}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "chol_inv",
         "route": "cuda",
         "source": "pycollo_tpu_torch/csrc/block_chol.cu",
         "replaces": "pycollo_tpu/ops/block_chol.py:63",
-        "launches": sl["launches"],
+        "launches": sl["launches"] + rf["launches"],
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],

@@ -7,10 +7,17 @@ parity with the reference example
 This is also the batched-MPC benchmark workload (see ``bench.py``).
 """
 
-import numpy as np
-import sympy as sym
+import sys
+from pathlib import Path
 
-import pycollo_tpu_torch
+if __name__ == "__main__":
+    # run as a script from a checkout: the package sits beside examples/
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import numpy as np  # noqa: E402
+import sympy as sym  # noqa: E402
+
+import pycollo_tpu_torch  # noqa: E402
 
 
 def build_problem(T: float = 2.0, d: float = 1.0):

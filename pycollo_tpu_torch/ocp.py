@@ -13,11 +13,13 @@ Port differences: the "backend" is a batched PyTorch transcription
 interior-point method (:mod:`pycollo_tpu_torch.solver.ipm`);
 ``solve_batched`` solves many perturbed instances of the same problem
 simultaneously on one device — a capability the serial reference does not
-have.  ``solve()`` (the mesh-refinement loop) is not ported yet.
+have.  ``solve(device=...)`` runs every NLP solve of the refinement loop on
+the given device.
 """
 
 from __future__ import annotations
 
+import time as _time
 from typing import Callable, Iterable, Optional
 
 import numpy as np
@@ -26,6 +28,7 @@ from .bounds import EndpointBounds
 from .guess import EndpointGuess
 from .phase import NamedVarTuple, Phase, _as_var_tuple, _is_symbolic
 from .settings import Settings
+from .utils import console_out, format_time
 
 
 class _PhaseList(list):
@@ -193,13 +196,29 @@ class OptimalControlProblem:
         self._initialised = True
         self._mesh_tolerance_met = False
 
-    def solve(self, display_progress: Optional[bool] = None):
-        """The ph-adaptive mesh refinement loop
-        (``optimal_control_problem.py:387-443``) is not ported yet."""
-        raise NotImplementedError(
-            "OptimalControlProblem.solve (mesh refinement) is not ported to "
-            "pycollo_tpu_torch yet (ROADMAP A.7, refinement and solution); "
-            "use solve_batched or MeshIteration.solve for one mesh.")
+    def solve(self, display_progress: Optional[bool] = None,
+              device="cpu"):
+        """Run the ph-adaptive mesh refinement loop
+        (``optimal_control_problem.py:387-443``), every NLP solve on
+        ``device`` (a torch device or its name; default the CPU)."""
+        if not self._initialised:
+            self.initialise()
+        display = (self.settings.console_out_progress
+                   if display_progress is None else display_progress)
+        from .refinement import run_mesh_refinement_loop
+        start = _time.perf_counter()
+        result = run_mesh_refinement_loop(self._backend, display=display,
+                                          device=device)
+        self._mesh_iterations = result.iterations
+        self._solution = result.solution
+        self._mesh_tolerance_met = result.mesh_tolerance_met
+        if display:
+            console_out(
+                f"Solve completed in "
+                f"{format_time(_time.perf_counter() - start)}; "
+                f"objective = {result.solution.objective:.8g}; "
+                f"mesh tolerance met: {result.mesh_tolerance_met}")
+        return self._solution
 
     def solve_batched(self, overrides=None, batch_size: Optional[int] = None,
                       devices=None):

@@ -93,7 +93,7 @@ def solve_batched(backend, overrides=None, batch_size: Optional[int] = None,
     if len(devices) != 1:
         raise NotImplementedError(
             "solve_batched runs on exactly one device; multi-device "
-            "solves are not ported yet (ROADMAP A.9).")
+            "solves are not ported yet (ROADMAP A.10).")
     device = torch.device(devices[0])
     iteration = backend.mesh_iterations[-1]
     if theta_batch is None:

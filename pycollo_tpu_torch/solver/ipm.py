@@ -23,11 +23,11 @@ hand-written kernel of :mod:`pycollo_tpu_torch.ops.block_chol`) and the step
 is refined by GMRES on the unregularized coupled KKT system against the
 f64 residual.
 
-Ported: the dense path with the Wächter–Biegler filter line search,
-speculative inertia correction, feasibility restoration and both barrier
-strategies.  Not ported yet: the block-banded structured path
-(``compute_step_structured``), the l1-merit line search and the sequential
-("loop") inertia correction.
+Ported: the dense path with the Wächter–Biegler filter line search and the
+l1-merit Armijo line search, speculative and sequential ("loop") inertia
+correction, feasibility restoration, both barrier strategies, and generic
+``torch.func`` derivatives for NLPs given without structured ones.  Not
+ported yet: the block-banded structured path (``compute_step_structured``).
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
-from torch.func import grad, vjp
+from torch.func import grad, hessian, jacfwd, jacrev, vjp, vmap
 
 from ..utils import DeviceConstants
 
@@ -64,8 +64,8 @@ class IPMOptions:
     #: batched trial-point sweep)
     eta_armijo: float = 1e-4
     max_ls: int = 12
-    #: globalization: only "filter" (Wächter–Biegler, what IPOPT runs) is
-    #: ported; the reference's "merit" line search is not.
+    #: globalization: "filter" is the Wächter–Biegler filter line search
+    #: (what IPOPT runs); "merit" is the l1-merit Armijo line search.
     line_search: str = "filter"
     #: filter constants (IPOPT eq. 18-20 defaults)
     gamma_theta: float = 1e-5
@@ -99,9 +99,10 @@ class IPMOptions:
     resto_stall_patience: int = 5
     resto_min_decrease: float = 1e-3
     resto_max_entries: int = 3
-    #: inertia correction: only "speculative" (factor the condensed matrix
-    #: at several regularization levels in one batched call, keep the first
-    #: positive-definite level per instance) is ported.
+    #: inertia correction: "speculative" factors the condensed matrix at
+    #: several regularization levels in one batched call and keeps the
+    #: first positive-definite level per instance; "loop" is the IPOPT-style
+    #: sequential escalation (dw = 0 first, then up until positive definite).
     inertia: str = "speculative"
     #: speculative regularization levels as multipliers of 0.3*dw_last
     #: (level 0 is always dw = 0); instances not positive definite at any
@@ -239,24 +240,22 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
     batch-first ``x`` (B, n) and ``theta`` (B, p), treat instances
     independently, and must be differentiable by ``torch.func``.  Bounds are
     numpy arrays (they define the slack layout and masks).
-    ``derivatives`` supplies the structured evaluators
-    ``{"jac_c": (x, theta) -> (B, m, n),
-    "hess_lag": (x, lam, theta) -> (B, n, n)}`` (the transcription's
-    per-node block assembly); the objective gradient and J^T lam come from
-    ``torch.func``.  Returns ``solve(x0, theta) -> IPMResult`` for
-    ``x0`` (B, n) and ``theta`` (B, p); the dtype of ``theta`` is the
-    working dtype and its device the device of the solve.
+    ``derivatives`` optionally supplies structured evaluators
+    ``{"grad_f": (x, theta) -> (B, n), "jac_c": (x, theta) -> (B, m, n),
+    "hess_lag": (x, lam, theta) -> (B, n, n)}`` (e.g. the transcription's
+    per-node block assembly); those missing come from ``torch.func``,
+    batched over the instance axis with ``vmap``.  J^T lam always comes
+    from one VJP.  Returns ``solve(x0, theta) -> IPMResult`` for ``x0``
+    (B, n) and ``theta`` (B, p); the dtype of ``theta`` is the working
+    dtype and its device the device of the solve.
     """
     opt = options
-    if opt.line_search != "filter":
-        raise NotImplementedError(
-            f"line_search={opt.line_search!r} is not ported; use 'filter'.")
-    if opt.inertia != "speculative":
-        raise NotImplementedError(
-            f"inertia={opt.inertia!r} is not ported; use 'speculative'.")
-    if not derivatives or "jac_c" not in derivatives \
-            or "hess_lag" not in derivatives:
-        raise ValueError("derivatives must supply 'jac_c' and 'hess_lag'.")
+    if opt.line_search not in ("filter", "merit"):
+        raise ValueError(f"line_search={opt.line_search!r}: expected "
+                         f"'filter' or 'merit'.")
+    if opt.inertia not in ("speculative", "loop"):
+        raise ValueError(f"inertia={opt.inertia!r}: expected "
+                         f"'speculative' or 'loop'.")
     xl = np.asarray(xl, dtype=float)
     xu = np.asarray(xu, dtype=float)
     cl = np.asarray(cl, dtype=float)
@@ -298,13 +297,34 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
             'eval_dtype="f32" requires kkt_precision="mixed" (the f64 '
             'factorization path would promote the f32 blocks back).')
 
-    jac_c = derivatives["jac_c"]
-    hess_lag = derivatives["hess_lag"]
+    derivatives = derivatives or {}
 
-    def grad_f(x, theta):
+    # Per-instance views of the batch-first functions for the generic
+    # torch.func derivatives (the instance keeps a singleton batch axis).
+    def f_one(x, theta):
+        return f_fn(x[None], theta[None])[0]
+
+    def c_one(x, theta):
+        return c_fn(x[None], theta[None])[0]
+
+    def lagrangian(x, lam, theta):
+        return f_one(x, theta) + c_one(x, theta) @ lam
+
+    def grad_f_ad(x, theta):
         # instances are independent: the gradient of the batch sum is the
         # stack of the per-instance gradients
         return grad(lambda xx: f_fn(xx, theta).sum())(x)
+
+    def jac_c_ad(x, theta):
+        jac = jacfwd(c_one) if n <= 4 * m else jacrev(c_one)
+        return vmap(jac)(x, theta)
+
+    def hess_lag_ad(x, lam, theta):
+        return vmap(hessian(lagrangian))(x, lam, theta)
+
+    grad_f = derivatives.get("grad_f") or grad_f_ad
+    jac_c = derivatives.get("jac_c") or jac_c_ad
+    hess_lag = derivatives.get("hess_lag") or hess_lag_ad
 
     def jt_lam(x, lam, theta):
         """Exact J^T lam (B, n) from one VJP of the batched constraints."""
@@ -338,6 +358,12 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
             & (torch.where(hu, du, 1.0) > 0.0).all(-1)
         val = -mu * (bl.sum(-1) + bu.sum(-1))
         return torch.where(feas, val, math.inf)
+
+    def merit(v, mu, nu, theta):
+        """l1 merit function f + barrier + nu * |g|_1, (B,)."""
+        v = v.to(theta.dtype)
+        return f_fn(v[:, :n], theta) + barrier(v, mu) \
+            + nu * g_fn(v, theta).abs().sum(-1)
 
     def kkt_error_pre(gf, Jtlam, rg, v, lam, zl, zu, mu):
         """Scaled KKT error (IPOPT eq. 5) from precomputed derivatives,
@@ -510,61 +536,93 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
             dv, dlam, solved_ok = solve_with(factors_, dK64, dw)
             return dv, dlam, lvl_ok & solved_ok, (factors_, dK64)
 
-        # Speculative multi-level inertia correction: factor K at
-        # dw in {0, spec_levels * 0.3*dw_last (, delta_w_max)} in ONE
-        # batched call and keep the first positive-definite level.
-        dw1 = torch.clamp(0.3 * dw_last, min=opt.delta_w_min)
-        dws = torch.stack(
-            [torch.zeros_like(dw1)]
-            + [torch.clamp(m_ * dw1, max=opt.delta_w_max)
-               for m_ in opt.spec_levels]
-            + ([torch.full_like(dw1, opt.delta_w_max)]
-               if opt.spec_capstone else []), dim=1)          # (B, L)
-        K_all = K0_f[:, None] \
-            + dws.to(K0_f.dtype)[:, :, None, None] * eye_f
-        fac_all, dK_all, lvl_ok = equil_factor(K_all)
-        lvl = _first_true(lvl_ok)
-        any_lvl = lvl_ok.any(-1)
-        factors_sel = tuple(_take(a, lvl) for a in fac_all) \
-            if isinstance(fac_all, tuple) else _take(fac_all, lvl)
-        dK64 = _take(dK_all, lvl).to(v.dtype)
-        dw_spec = _take(dws, lvl)
-        dv, dlam, solved_ok = solve_with(factors_sel, dK64, dw_spec)
-        ok0 = any_lvl & solved_ok
-        # Escalation above the top level for the instances still
-        # indefinite (a batched while_loop: instances whose condition is
-        # false keep their values); zero trips when all are satisfied.
-        dw_esc = dws[:, -1]
-        ok = ok0
-        k = torch.ones(B, dtype=torch.int32, device=dev)
-        factors = (factors_sel, dK64)
-        while True:
-            esc = (~ok) & (k < 30)
-            if not bool(esc.any()):
-                break
-            dw_next = torch.where(
-                dw_esc == 0.0, torch.clamp(0.3 * dw_last,
-                                           min=opt.delta_w_min),
-                dw_esc * opt.delta_w_up)
-            dw_next = torch.clamp(dw_next, max=opt.delta_w_max)
-            dv_n, dlam_n, ok_n, fac_n = attempt(dw_next)
-            dw_esc = _where(esc, dw_next, dw_esc)
-            dv = _where(esc, dv_n, dv)
-            dlam = _where(esc, dlam_n, dlam)
-            ok = _where(esc, ok_n, ok)
-            factors = _tree_where(esc, fac_n, factors)
-            k = k + esc.to(torch.int32)
-        # dw of the SELECTED factors (fed to the corrector's exact KKT
-        # operator) vs the value reported to the dw_last heuristic: the
-        # capstone level must not ratchet dw_last to delta_w_max.
-        dw_op = torch.where(ok0, dw_spec, dw_esc)
-        dw_rep = dw_spec
-        if opt.spec_capstone:
-            dw_rep = torch.where(
-                lvl == dws.shape[1] - 1,
-                torch.clamp(opt.delta_w_up * dws[:, -2],
-                            max=opt.delta_w_max), dw_spec)
-        dw_used = torch.where(ok0, dw_rep, dw_esc)
+        if opt.inertia == "speculative":
+            # Speculative multi-level inertia correction: factor K at
+            # dw in {0, spec_levels * 0.3*dw_last (, delta_w_max)} in ONE
+            # batched call and keep the first positive-definite level.
+            dw1 = torch.clamp(0.3 * dw_last, min=opt.delta_w_min)
+            dws = torch.stack(
+                [torch.zeros_like(dw1)]
+                + [torch.clamp(m_ * dw1, max=opt.delta_w_max)
+                   for m_ in opt.spec_levels]
+                + ([torch.full_like(dw1, opt.delta_w_max)]
+                   if opt.spec_capstone else []), dim=1)          # (B, L)
+            K_all = K0_f[:, None] \
+                + dws.to(K0_f.dtype)[:, :, None, None] * eye_f
+            fac_all, dK_all, lvl_ok = equil_factor(K_all)
+            lvl = _first_true(lvl_ok)
+            any_lvl = lvl_ok.any(-1)
+            factors_sel = tuple(_take(a, lvl) for a in fac_all) \
+                if isinstance(fac_all, tuple) else _take(fac_all, lvl)
+            dK64 = _take(dK_all, lvl).to(v.dtype)
+            dw_spec = _take(dws, lvl)
+            dv, dlam, solved_ok = solve_with(factors_sel, dK64, dw_spec)
+            ok0 = any_lvl & solved_ok
+            # Escalation above the top level for the instances still
+            # indefinite (a batched while_loop: instances whose condition is
+            # false keep their values); zero trips when all are satisfied.
+            dw_esc = dws[:, -1]
+            ok = ok0
+            k = torch.ones(B, dtype=torch.int32, device=dev)
+            factors = (factors_sel, dK64)
+            while True:
+                esc = (~ok) & (k < 30)
+                if not bool(esc.any()):
+                    break
+                dw_next = torch.where(
+                    dw_esc == 0.0, torch.clamp(0.3 * dw_last,
+                                               min=opt.delta_w_min),
+                    dw_esc * opt.delta_w_up)
+                dw_next = torch.clamp(dw_next, max=opt.delta_w_max)
+                dv_n, dlam_n, ok_n, fac_n = attempt(dw_next)
+                dw_esc = _where(esc, dw_next, dw_esc)
+                dv = _where(esc, dv_n, dv)
+                dlam = _where(esc, dlam_n, dlam)
+                ok = _where(esc, ok_n, ok)
+                factors = _tree_where(esc, fac_n, factors)
+                k = k + esc.to(torch.int32)
+            # dw of the SELECTED factors (fed to the corrector's exact KKT
+            # operator) vs the value reported to the dw_last heuristic: the
+            # capstone level must not ratchet dw_last to delta_w_max.
+            dw_op = torch.where(ok0, dw_spec, dw_esc)
+            dw_rep = dw_spec
+            if opt.spec_capstone:
+                dw_rep = torch.where(
+                    lvl == dws.shape[1] - 1,
+                    torch.clamp(opt.delta_w_up * dws[:, -2],
+                                max=opt.delta_w_max), dw_spec)
+            dw_used = torch.where(ok0, dw_rep, dw_esc)
+        else:
+            # IPOPT-style sequential escalation: dw = 0 first, then
+            # 0.3 * dw_last, then up by delta_w_up until the factorization
+            # succeeds; an instance stops escalating once it has (a batched
+            # do-while: the others keep their values).
+            dw_op = torch.zeros(B, dtype=v.dtype, device=dev)
+            dv = torch.zeros((B, nv), dtype=v.dtype, device=dev)
+            dlam = torch.zeros((B, m), dtype=v.dtype, device=dev)
+            ok = torch.zeros(B, dtype=torch.bool, device=dev)
+            k = torch.zeros(B, dtype=torch.int32, device=dev)
+            factors = None
+            while True:
+                esc = (~ok) & (k < 30)
+                if not bool(esc.any()):
+                    break
+                dw_next = torch.where(
+                    k == 0, 0.0,
+                    torch.where(dw_op == 0.0,
+                                torch.clamp(0.3 * dw_last,
+                                            min=opt.delta_w_min),
+                                dw_op * opt.delta_w_up))
+                dw_next = torch.clamp(dw_next, max=opt.delta_w_max)
+                dv_n, dlam_n, ok_n, fac_n = attempt(dw_next)
+                dw_op = _where(esc, dw_next, dw_op)
+                dv = _where(esc, dv_n, dv)
+                dlam = _where(esc, dlam_n, dlam)
+                ok = _where(esc, ok_n, ok)
+                factors = fac_n if factors is None \
+                    else _tree_where(esc, fac_n, factors)
+                k = k + esc.to(torch.int32)
+            dw_used = dw_op
 
         dzl = torch.where(hl, mu_dl - zl - sig_l * dv, 0.0)
         dzu = torch.where(hu, mu_du - zu + sig_u * dv, 0.0)
@@ -612,6 +670,44 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
                           math.inf)
         return torch.clamp(torch.minimum(b_l.amin(-1), b_u.amin(-1)),
                            max=1.0)
+
+    def line_search(v, dv, dlam, mu, nu, alpha_max, gf_dv, corrector,
+                    theta, g0, f0):
+        """l1-merit Armijo backtracking as one batched trial sweep, plus a
+        second-order-correction candidate at the full step.
+
+        Returns (dv_eff, dlam_eff, alpha, ls_ok)."""
+        g1 = g0.abs().sum(-1)
+        phi0 = f0 + barrier(v, mu) + nu * g1
+        dphi = torch.clamp(gf_dv - nu * g1, max=0.0)
+        alphas = alpha_max[:, None] * 0.5 ** torch.arange(
+            opt.max_ls, dtype=alpha_max.dtype, device=v.device)
+        (phis,) = sweep(v, dv, alphas, lambda pts, row: [
+            merit(pts, row(mu), row(nu), row(theta))])
+        ok = phis <= phi0[:, None] + opt.eta_armijo * alphas * dphi[:, None]
+        any_ok = ok.any(-1)
+        alpha_plain = torch.where(any_ok, _take(alphas, _first_true(ok)),
+                                  alphas[:, -1])
+
+        # SOC candidate from the full-step constraint residual.
+        g_trial = g_fn(v + alpha_max[:, None] * dv, theta)
+        dv_c, dlam_c = corrector(alpha_max[:, None] * g0 + g_trial)
+        soc_bad = torch.isnan(dv_c).any(-1)
+        dv_c = _where(soc_bad, 0.0, dv_c)
+        dlam_c = _where(soc_bad, 0.0, dlam_c)
+        disp = alpha_max[:, None] * dv + dv_c
+        beta = ftb_primal(v, disp, mu)
+        phi_soc = merit(v + beta[:, None] * disp, mu, nu, theta)
+        soc_ok = (phi_soc <= phi0 + opt.eta_armijo * beta * alpha_max
+                  * dphi) & (~soc_bad)
+        use_soc = soc_ok & (beta * alpha_max > alpha_plain) & (~ok[:, 0])
+        dv_eff = _where(use_soc, beta[:, None] * disp,
+                        alpha_plain[:, None] * dv)
+        dlam_eff = _where(use_soc,
+                          beta[:, None] * (alpha_max[:, None] * dlam + dlam_c),
+                          alpha_plain[:, None] * dlam)
+        alpha_rep = torch.where(use_soc, beta * alpha_max, alpha_plain)
+        return dv_eff, dlam_eff, alpha_rep, any_ok | soc_ok
 
     def update_nu(nu, g0, gf_dv):
         """Merit penalty update (IPOPT eq. 3.5 with rho = 0.1)."""
@@ -780,9 +876,15 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
         alpha_max = ftb_primal(v, dv, mu)
         alpha_dual = ftb_dual(zl, zu, dzl, dzu, mu)
         # Line-search trial evaluations stay f64 even in ev32 mode.
-        (dv_eff, dlam_eff, alpha, ls_ok, fth_n, fph_n,
-         fcnt_n) = filter_line_search(state, dv, dlam, alpha_max, gf_dv,
-                                      corrector, theta, rg, f0)
+        if opt.line_search == "filter":
+            (dv_eff, dlam_eff, alpha, ls_ok, fth_n, fph_n,
+             fcnt_n) = filter_line_search(state, dv, dlam, alpha_max, gf_dv,
+                                          corrector, theta, rg, f0)
+        else:
+            dv_eff, dlam_eff, alpha, ls_ok = line_search(
+                v, dv, dlam, mu, nu_new, alpha_max, gf_dv, corrector, theta,
+                rg, f0)
+            fth_n, fph_n, fcnt_n = state.fth, state.fph, state.fcnt
         th0 = rg.abs().sum(-1)
         if opt.restoration:
             # Restoration acceptance: Armijo decrease on the violation

@@ -1077,9 +1077,11 @@ class MeshIteration:
         self.cu_scaled = self.W_c * self.cu
 
     # -- solve ------------------------------------------------------------
-    def build_solver(self, options=None):
+    def build_solver(self, options=None, use_structured=True):
         """Build the batched interior-point solver of this iteration's NLP
-        (dense condensed-KKT path, structured derivatives)."""
+        (dense condensed-KKT path).  ``use_structured=False`` leaves the
+        derivatives to the solver's generic ``torch.func`` fallback instead
+        of the per-node structured assembly."""
         from .solver.ipm import IPMOptions, build_ipm_solver
         if options is None:
             options = IPMOptions(tol=self.settings.nlp_tolerance,
@@ -1091,11 +1093,14 @@ class MeshIteration:
         if self.settings.linear_solver == "block-banded":
             raise NotImplementedError(
                 "linear_solver='block-banded' is not ported yet "
-                "(ROADMAP A.8); use 'condensed-cholesky'.")
-        self._solver = build_ipm_solver(
-            self.f_scaled, self.c_scaled, self.xs_lb, self.xs_ub,
-            self.cl_scaled, self.cu_scaled, options,
-            derivatives=dict(self._build_structured_derivatives()))
+                "(ROADMAP A.9); use 'condensed-cholesky'.")
+        with self.profiler.span("solver build"):
+            derivatives = dict(self._build_structured_derivatives()) \
+                if use_structured else None
+            self._solver = build_ipm_solver(
+                self.f_scaled, self.c_scaled, self.xs_lb, self.xs_ub,
+                self.cl_scaled, self.cu_scaled, options,
+                derivatives=derivatives)
         return self._solver
 
     def solve(self, theta=None, warm=None, device="cpu"):

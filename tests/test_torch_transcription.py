@@ -188,12 +188,14 @@ def test_f32_assembly_follows_theta_dtype(iterations):
 
 
 def test_import_leaves_jax_out():
-    """The port never imports jax (checked in a fresh interpreter: this
-    test process has jax loaded by tests/conftest.py)."""
+    """The port never imports jax, and imports matplotlib only when a plot
+    is drawn (checked in a fresh interpreter: this test process has jax
+    loaded by tests/conftest.py)."""
     code = ("import sys, pycollo_tpu_torch, pycollo_tpu_torch.solver.ipm, "
-            "pycollo_tpu_torch.parallel.batch, pycollo_tpu_torch.interop; "
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'pycollo_tpu.'))]; "
+            "pycollo_tpu_torch.parallel.batch, pycollo_tpu_torch.interop, "
+            "pycollo_tpu_torch.refinement, pycollo_tpu_torch.vis.plot; "
+            "bad = [m for m in sys.modules if m in ('jax', 'matplotlib') or "
+            "m.startswith(('jax.', 'pycollo_tpu.', 'matplotlib.'))]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
