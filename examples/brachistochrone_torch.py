@@ -47,7 +47,12 @@ def build_problem():
 
 
 if __name__ == "__main__":
+    import argparse
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--device", default="cuda",
+                        help="device of the NLP solves: cuda (default) or cpu")
+    args = parser.parse_args()
     problem = build_problem()
     problem.initialise()
-    solution = problem.solve()
+    solution = problem.solve(device=args.device)
     print(f"Objective (tF): {solution.objective:.6f}  (expected 0.82434)")

@@ -65,7 +65,12 @@ def build_problem(T: float = 2.0, d: float = 1.0):
 
 
 if __name__ == "__main__":
+    import argparse
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--device", default="cuda",
+                        help="device of the NLP solves: cuda (default) or cpu")
+    args = parser.parse_args()
     problem = build_problem()
     problem.initialise()
-    solution = problem.solve()
+    solution = problem.solve(device=args.device)
     print(f"Objective (integral of F^2): {solution.objective:.6f}")

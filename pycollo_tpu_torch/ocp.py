@@ -28,7 +28,7 @@ from .bounds import EndpointBounds
 from .guess import EndpointGuess
 from .phase import NamedVarTuple, Phase, _as_var_tuple, _is_symbolic
 from .settings import Settings
-from .utils import console_out, format_time
+from .utils import console_out, format_time, solve_device
 
 
 class _PhaseList(list):
@@ -197,10 +197,13 @@ class OptimalControlProblem:
         self._mesh_tolerance_met = False
 
     def solve(self, display_progress: Optional[bool] = None,
-              device="cpu"):
+              device="cuda"):
         """Run the ph-adaptive mesh refinement loop
         (``optimal_control_problem.py:387-443``), every NLP solve on
-        ``device`` (a torch device or its name; default the CPU)."""
+        ``device`` (a torch device or its name; default the CUDA card,
+        ``"cpu"`` to solve on the CPU).  Raises if no CUDA device is
+        available and the CPU was not named."""
+        device = solve_device(device)
         if not self._initialised:
             self.initialise()
         display = (self.settings.console_out_progress
@@ -226,7 +229,8 @@ class OptimalControlProblem:
 
         ``overrides`` maps variable references (e.g. entries of
         ``phase.bounds.initial_state_constraints`` keys) to batched arrays.
-        ``devices``: one torch device (default CPU).  See
+        ``devices``: a sequence of one torch device (default the CUDA card;
+        ``[torch.device("cpu")]`` for the CPU).  See
         :mod:`pycollo_tpu_torch.parallel.batch` for details.  New
         capability relative to the serial reference (SURVEY.md section 2
         "absent" rows).

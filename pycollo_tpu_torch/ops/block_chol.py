@@ -1,16 +1,20 @@
-"""Batched small-block Cholesky inverse: CUDA kernel, plain version, blocks.
+"""Batched Cholesky inverse: CUDA kernel, plain version, blocked extension.
 
-:func:`chol_inv` returns ``L^{-1}`` of the Cholesky factors of a stack of
-small SPD matrices (n <= :data:`MAX_BLOCK_N`).  On a CUDA tensor it launches
-the hand-written Hopper kernel ``csrc/block_chol.cu`` (the counterpart of
-the Pallas kernel ``batched_chol_inv`` in ``pycollo_tpu/ops/block_chol.py``);
-on a CPU tensor it runs :func:`chol_inv_reference`, the plain PyTorch
-version.  :func:`blocked_chol_linv` extends it to any n: the kernel factors
-and inverts each diagonal block, and plain f32 batched matmuls do the
-panels, trailing updates and block triangular inversion.  It is the
-factorization of the interior-point solver's ``kkt_precision="mixed"`` path
-(``solver/linalg.py``), where a non-PD instance must show up as a NaN or
-non-positive pivot in ``diag_L`` and never as a silently wrong factor.
+:func:`chol_inv` returns ``L^{-1}`` (and optionally ``diag(L)``) of the
+Cholesky factors of a stack of SPD matrices, n <= :data:`MAX_BLOCK_N`.  On
+a CUDA tensor it launches the hand-written Hopper kernel
+``csrc/chol_linv.cu`` (the counterpart of the Pallas kernel
+``batched_chol_inv`` in ``pycollo_tpu/ops/block_chol.py``), one thread
+block per matrix with the whole matrix in shared memory; on a CPU tensor it
+runs :func:`chol_inv_reference`, the plain PyTorch version.
+:func:`blocked_chol_linv` extends it to any n: a matrix of at most
+:data:`MAX_BLOCK_N` is one kernel launch, a larger one is split into the
+fewest equal blocks, whose diagonal blocks run the kernel while plain f32
+batched matmuls do the panels, trailing updates and block triangular
+inversion.  It is the factorization of the interior-point solver's
+``kkt_precision="mixed"`` path (``solver/linalg.py``), where a non-PD
+instance must show up as a NaN or non-positive pivot in ``diag_L`` and
+never as a silently wrong factor.
 """
 
 from __future__ import annotations
@@ -21,9 +25,10 @@ import torch
 
 from . import _build
 
-#: largest block the kernel takes (the shared-memory tile and the lanes'
-#: row ownership are sized for it)
-MAX_BLOCK_N = 48
+#: largest matrix the kernel takes: its shared memory (at most 112 KB, so
+#: two blocks share an SM) and its one-row-per-thread phases (256 threads)
+#: are sized for it
+MAX_BLOCK_N = 160
 
 
 def _check_stack(A: torch.Tensor) -> None:
@@ -36,44 +41,48 @@ def _check_stack(A: torch.Tensor) -> None:
 
 
 def _kernel_fn():
-    lib = _build.load("block_chol.cu")
-    fn = lib.pycollo_chol_inv_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+    lib = _build.load("chol_linv.cu")
+    fn = lib.pycollo_chol_linv_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def chol_inv(A: torch.Tensor) -> torch.Tensor:
-    """``L^{-1}`` for ``A = L L^T``, A a (B, n, n) SPD stack, n <= 48.
+def chol_inv(A: torch.Tensor, return_diag: bool = False):
+    """``L^{-1}`` for ``A = L L^T``, A a (B, n, n) SPD stack, n <= 160.
 
     Returns a (B, n, n) float32 lower-triangular stack with exact zeros
-    above the diagonal; the input is cast to float32.  An instance that is
-    not positive definite gives NaN (or a zero pivot) in that instance
-    only.  A CUDA tensor launches the kernel (and counts the launch in
-    ``chol_inv.launches``); a CPU tensor runs :func:`chol_inv_reference`.
+    above the diagonal, and with ``return_diag`` also ``diag(L)`` (B, n);
+    the input is cast to float32 and only its lower triangle is read.  An
+    instance that is not positive definite gives NaN (or inf) in that
+    instance only.  A CUDA tensor launches the kernel once (and counts the
+    launch in ``chol_inv.launches``); a CPU tensor runs
+    :func:`chol_inv_reference`.
     """
     _check_stack(A)
     if A.device.type == "cpu":
-        return chol_inv_reference(A)
+        return chol_inv_reference(A, return_diag)
     if A.device.type != "cuda":
         raise ValueError(f"chol_inv takes CPU or CUDA tensors, got {A.device}")
     if not A.is_contiguous():
         raise ValueError("chol_inv needs a contiguous stack")
     A32 = A.to(torch.float32)
-    out = torch.empty_like(A32)
     B, n = A32.shape[0], A32.shape[-1]
-    if B == 0:
-        return out
-    fn = _kernel_fn()
-    with torch.cuda.device(A32.device):
-        stream = torch.cuda.current_stream(A32.device).cuda_stream
-        err = fn(A32.data_ptr(), out.data_ptr(), B, n, stream)
-    if err != 0:
-        raise RuntimeError(f"block_chol kernel launch failed: CUDA error {err} "
-                           f"(B={B}, n={n})")
-    chol_inv.launches += 1
-    return out
+    out = torch.empty_like(A32)
+    diag = (torch.empty((B, n), dtype=torch.float32, device=A32.device)
+            if return_diag else None)
+    if B > 0:
+        fn = _kernel_fn()
+        with torch.cuda.device(A32.device):
+            stream = torch.cuda.current_stream(A32.device).cuda_stream
+            err = fn(A32.data_ptr(), out.data_ptr(),
+                     diag.data_ptr() if return_diag else None, B, n, stream)
+        if err != 0:
+            raise RuntimeError(f"chol_linv kernel launch failed: CUDA error "
+                               f"{err} (B={B}, n={n})")
+        chol_inv.launches += 1
+    return (out, diag) if return_diag else out
 
 
 #: kernel launches since the last reset (a plain counter, set to 0 by callers
@@ -81,7 +90,7 @@ def chol_inv(A: torch.Tensor) -> torch.Tensor:
 chol_inv.launches = 0
 
 
-def chol_inv_reference(A: torch.Tensor) -> torch.Tensor:
+def chol_inv_reference(A: torch.Tensor, return_diag: bool = False):
     """Plain version of :func:`chol_inv`: ``cholesky_ex`` + triangular solve
     in float32.  Instances whose factorization fails (``info != 0``) come out
     all NaN, which keeps the kernel's failure contract."""
@@ -91,8 +100,13 @@ def chol_inv_reference(A: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(A32.shape[-1], dtype=torch.float32,
                     device=A32.device).expand_as(A32)
     Linv = torch.linalg.solve_triangular(L, eye, upper=False)
-    return torch.where((info == 0)[:, None, None], Linv,
-                       torch.full_like(Linv, float("nan")))
+    ok = (info == 0)[:, None, None]
+    Linv = torch.where(ok, Linv, torch.full_like(Linv, float("nan")))
+    if not return_diag:
+        return Linv
+    diag = torch.diagonal(L, dim1=-2, dim2=-1)
+    nan = torch.full_like(diag, float("nan"))
+    return Linv, torch.where(ok[:, 0], diag, nan)
 
 
 def blocked_chol_linv(A: torch.Tensor, block: int | None = None):
@@ -104,10 +118,13 @@ def blocked_chol_linv(A: torch.Tensor, block: int | None = None):
     so a solve is two matrix products ``x = Linv^T (Linv b)``.
 
     The blocks are ``block`` wide (default: the fewest blocks of at most
-    :data:`MAX_BLOCK_N`); the last is padded with the identity.  All
-    leading axes are folded into the kernel's batch.  A non-PD instance
-    yields NaN in its diagonal-block inverse, which propagates through
-    every later product of that instance.
+    :data:`MAX_BLOCK_N`, so n <= 160 is one block and n = 628 four of
+    157); the last is padded with the identity.  One block of n is one
+    kernel launch, whose outputs are returned as they are.  All leading
+    axes are folded into the kernel's batch.  A non-PD instance yields NaN
+    in its diagonal-block inverse, which propagates through every later
+    product of that instance.  Each call counts one in
+    ``blocked_chol_linv.calls``.
     """
     *batch, n, n2 = A.shape
     if n != n2:
@@ -123,6 +140,10 @@ def blocked_chol_linv(A: torch.Tensor, block: int | None = None):
         B *= d
     dev = A.device
     Af = A.reshape(B, n, n).to(torch.float32)
+    blocked_chol_linv.calls += 1
+    if n_pad == n == block:
+        Linv, diag_L = chol_inv(Af.contiguous(), return_diag=True)
+        return diag_L.reshape(*batch, n), Linv.reshape(*batch, n, n)
     if n_pad != n:
         P = torch.zeros((B, n_pad, n_pad), dtype=torch.float32, device=dev)
         P[:, :n, :n] = Af
@@ -168,3 +189,8 @@ def blocked_chol_linv(A: torch.Tensor, block: int | None = None):
     diag_L = 1.0 / dinv_diag
     return (diag_L.reshape(*batch, n),
             Linv.reshape(*batch, n, n))
+
+
+#: calls since the last reset (a plain counter: with ``chol_inv.launches``
+#: it gives the kernel launches per factorization)
+blocked_chol_linv.calls = 0

@@ -16,6 +16,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..utils import solve_device
+
 
 @dataclass
 class BatchedSolveResult:
@@ -82,19 +84,21 @@ def solve_batched(backend, overrides=None, batch_size: Optional[int] = None,
     """Solve a batch of perturbed instances of the current mesh iteration.
 
     ``devices``: a sequence holding the one torch device to solve on
-    (default: the CPU).  More than one device is not supported yet.
+    (default: the CUDA card; ``[torch.device("cpu")]`` for the CPU, and
+    without a CUDA device the CPU must be named).  More than one device is
+    not supported yet.
     ``options``: build the iteration's solver with these ``IPMOptions``
     (default: reuse the iteration's solver, or build one from the
     problem settings).
     """
     import time
 
-    devices = list(devices) if devices is not None else [torch.device("cpu")]
+    devices = list(devices) if devices is not None else [torch.device("cuda")]
     if len(devices) != 1:
         raise NotImplementedError(
             "solve_batched runs on exactly one device; multi-device "
             "solves are not ported yet (ROADMAP A.10).")
-    device = torch.device(devices[0])
+    device = solve_device(devices[0])
     iteration = backend.mesh_iterations[-1]
     if theta_batch is None:
         if overrides:

@@ -34,7 +34,7 @@ from . import quadrature as quad
 from .guess import ProcessedPhaseGuess
 from .mesh import PhaseMeshTables, build_phase_tables
 from .solution import Solution, eval_dynamics
-from .utils import console_out
+from .utils import console_out, solve_device
 
 
 class PattersonRaoMeshRefinement:
@@ -277,10 +277,11 @@ class RefinementLoopResult:
     mesh_errors: list
 
 
-def run_mesh_refinement_loop(backend, display: bool = True, device="cpu"):
+def run_mesh_refinement_loop(backend, display: bool = True, device="cuda"):
     """The outer ph-adaptive loop
     (``pycollo/optimal_control_problem.py:387-443``); every NLP solve runs
-    on ``device``."""
+    on ``device`` (default the CUDA card; ``"cpu"`` names the CPU)."""
+    device = solve_device(device)
     settings = backend.settings
     iterations = []
     solution = None

@@ -43,7 +43,7 @@ from .bounds import (ProcessedPhaseBounds, ProcessedProblemBounds,
                      process_phase_bounds, process_problem_bounds)
 from .guess import ProcessedPhaseGuess, process_phase_guess
 from .structures import Endpoints, PhaseEndpoints
-from .utils import DeviceConstants
+from .utils import DeviceConstants, solve_device
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
@@ -1103,9 +1103,9 @@ class MeshIteration:
                 derivatives=derivatives)
         return self._solver
 
-    def solve(self, theta=None, warm=None, device="cpu"):
-        """Solve this mesh iteration's NLP on ``device``; returns an
-        IterationResult.
+    def solve(self, theta=None, warm=None, device="cuda"):
+        """Solve this mesh iteration's NLP on ``device`` (default the CUDA
+        card; ``"cpu"`` names the CPU); returns an IterationResult.
 
         ``warm`` is an optional dict with keys ``lam`` (m,), ``zl``/``zu``
         (n_free,), ``mu`` (scalar) interpolated from the previous mesh
@@ -1114,6 +1114,7 @@ class MeshIteration:
         import time
 
         from .solver.ipm import IPMResult
+        device = solve_device(device)
         if self._solver is None:
             self.build_solver()
         if theta is None:

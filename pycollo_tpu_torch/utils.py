@@ -71,6 +71,21 @@ def format_time(seconds: float) -> str:
     return f"{int(minutes)} min {rem:.1f} s"
 
 
+def solve_device(device) -> torch.device:
+    """The torch device an entry point solves on (default ``"cuda"``).
+
+    Raises when a CUDA device is asked for and none is available: the
+    package runs on the card unless the caller names the CPU, and never
+    falls back to it silently.
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' (devices="
+            "[torch.device('cpu')] for a batched solve) to solve on the CPU.")
+    return device
+
+
 def console_out(message: str, heading: bool = False) -> None:
     """Print a progress message, optionally underlined as a heading."""
     if heading:

@@ -3,9 +3,11 @@
 CPU: the port's plain version (``chol_inv_reference``, which ``chol_inv``
 runs for CPU tensors) and ``blocked_chol_linv`` against the JAX Pallas
 kernel run through its interpreter, on the same seeded numpy inputs.
-CUDA (``cuda`` marker, skipped without a GPU): the hand-written kernel
-against the plain version on the card.  The tolerance is the f32 one of
-``tests/unit/test_ops_chol.py``.
+The plain version at the kernel's sizes (up to 160) against f64.  CUDA
+(``cuda`` marker, skipped without a GPU): the hand-written kernel against
+the plain version on the card, and ``blocked_chol_linv`` at the solver's
+shapes, one launch at n = 148 and four at n = 628.  The tolerance is the
+f32 one of ``tests/unit/test_ops_chol.py``.
 
 JAX is imported inside the CPU tests only, so that the CUDA tests also run
 on a machine without JAX:
@@ -28,6 +30,17 @@ TOL = 2e-4
 def _random_spd(rng, b, n, jitter=0.5):
     M = rng.standard_normal((b, n, n))
     return M @ np.swapaxes(M, -1, -2) + jitter * np.eye(n)
+
+
+def _equilibrated_spd(rng, b, n):
+    """``M M^T / n + 0.5 I``: eigenvalues in about [0.5, 4.5], as for the
+    solver's Jacobi-equilibrated matrices, at any n."""
+    return _random_spd(rng, b, n, jitter=0.0) / n + 0.5 * np.eye(n)
+
+
+def _f64_linv(A):
+    L = np.linalg.cholesky(A)
+    return np.linalg.inv(L), np.einsum("bii->bi", L)
 
 
 def _jax_kernel(A):
@@ -105,27 +118,94 @@ def test_blocked_matches_jax():
                                rtol=1e-4, atol=1e-4)
 
 
+def test_blocked_default_is_one_block_and_matches_jax(monkeypatch):
+    """n = 60 with the default blocking: one block of 60 in the port (one
+    kernel launch on a card), two blocks of 30 in the JAX package (its
+    kernel takes at most 48).  The JAX package's diagonal blocks run its
+    XLA reference: its Pallas interpreter traces the fully unrolled
+    30 x 30 recurrence, which takes minutes on the CPU (the kernel itself
+    is held against the interpreter at n <= 15 above)."""
+    import jax.numpy as jnp
+    from pycollo_tpu.ops import block_chol as jax_ops
+    monkeypatch.setattr(jax_ops, "batched_chol_inv",
+                        lambda A, interpret=None: jax_ops.chol_inv_reference(A))
+    rng = np.random.default_rng(7)
+    A = _equilibrated_spd(rng, 6, 60)
+    dj, Lj = jax_ops.blocked_chol_linv(jnp.asarray(A))
+    calls, launches = blocked_chol_linv.calls, chol_inv.launches
+    d, L = blocked_chol_linv(torch.tensor(A).reshape(2, 3, 60, 60))
+    assert blocked_chol_linv.calls == calls + 1
+    assert chol_inv.launches == launches
+    np.testing.assert_allclose(L.reshape(6, 60, 60).numpy(), np.asarray(Lj),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(d.reshape(6, 60).numpy(), np.asarray(dj),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [148, 160])
+def test_plain_at_the_kernel_sizes_matches_f64(n):
+    rng = np.random.default_rng(n)
+    A = _equilibrated_spd(rng, 4, n)
+    Linv64, diag64 = _f64_linv(A)
+    Linv, diag = chol_inv(torch.tensor(A), return_diag=True)
+    assert Linv.dtype == torch.float32 and diag.shape == (4, n)
+    np.testing.assert_allclose(Linv.numpy(), Linv64, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(diag.numpy(), diag64, rtol=TOL, atol=TOL)
+    iu = np.triu_indices(n, k=1)
+    assert np.all(Linv.numpy()[:, iu[0], iu[1]] == 0.0)
+
+
+def test_plain_diag_is_nan_for_a_non_pd_instance():
+    rng = np.random.default_rng(8)
+    A = _equilibrated_spd(rng, 3, 20)
+    A[1] -= 10.0 * np.eye(20)
+    Linv, diag = chol_inv_reference(torch.tensor(A), return_diag=True)
+    assert torch.isnan(diag[1]).all() and torch.isnan(Linv[1]).all()
+    assert torch.isfinite(diag[[0, 2]]).all()
+
+
+def test_kernel_limit_is_160():
+    assert MAX_BLOCK_N == 160
+    chol_inv(torch.eye(MAX_BLOCK_N, dtype=torch.float64)[None])
+    with pytest.raises(ValueError):
+        chol_inv(torch.eye(MAX_BLOCK_N + 1, dtype=torch.float64)[None])
+
+
+def test_blocked_default_splits_into_the_fewest_blocks():
+    """n = 330: three blocks of 110 (the refined mesh's 628 is four of
+    157), the blocked algorithm with padding-free blocks, against f64."""
+    rng = np.random.default_rng(9)
+    A = _equilibrated_spd(rng, 2, 330)
+    Linv64, diag64 = _f64_linv(A)
+    d, L = blocked_chol_linv(torch.tensor(A))
+    np.testing.assert_allclose(L.numpy(), Linv64, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(d.numpy(), diag64, rtol=TOL, atol=TOL)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [3, 8, 15, 37, 48])
+@pytest.mark.parametrize("n", [3, 8, 15, 37, 45, 48, 100, 148, 157, 160])
 @pytest.mark.parametrize("B", [37, 1536])
 def test_kernel_matches_plain_on_card(cuda_device, n, B):
     rng = np.random.default_rng(n)
-    A = torch.tensor(_random_spd(rng, B, n), device=cuda_device)
+    spd = _random_spd if n <= 48 else _equilibrated_spd
+    A = torch.tensor(spd(rng, B, n), device=cuda_device)
     before = chol_inv.launches
-    out = chol_inv(A)
-    ref = chol_inv_reference(A)
+    out, diag = chol_inv(A, return_diag=True)
+    ref, dref = chol_inv_reference(A, return_diag=True)
     torch.cuda.synchronize()
     assert chol_inv.launches == before + 1
     torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(diag, dref, rtol=TOL, atol=TOL)
     iu = torch.triu_indices(n, n, offset=1, device=cuda_device)
     assert bool((out[:, iu[0], iu[1]] == 0).all())
 
 
 @pytest.mark.cuda
-def test_kernel_nan_isolation_on_card(cuda_device):
+@pytest.mark.parametrize("n", [37, 148])
+def test_kernel_nan_isolation_on_card(cuda_device, n):
     rng = np.random.default_rng(5)
-    A = _random_spd(rng, 37, 37)
-    A[5] -= 100.0 * np.eye(37)
+    A = _random_spd(rng, 37, n)
+    A[5] -= 100.0 * np.eye(n) * (n if n > 48 else 1)
     out = chol_inv(torch.tensor(A, device=cuda_device)).cpu().numpy()
     assert np.isnan(out[5]).any()
     assert np.isfinite(np.delete(out, 5, axis=0)).all()
@@ -133,14 +213,40 @@ def test_kernel_nan_isolation_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_blocked_on_card_matches_f64(cuda_device):
-    """The main path's shape: 256 instances x 6 ladder levels of 148."""
+    """The main path's shape: 256 instances x 6 ladder levels of 148, one
+    kernel launch."""
     rng = np.random.default_rng(6)
     A = _random_spd(rng, 1536, 148) / 148.0 + 0.5 * np.eye(148)
     A_d = torch.tensor(A, device=cuda_device)
+    before = chol_inv.launches
     d, L = blocked_chol_linv(A_d.reshape(256, 6, 148, 148))
+    assert chol_inv.launches == before + 1
     L64 = torch.linalg.cholesky(A_d)
     eye = torch.eye(148, dtype=torch.float64, device=cuda_device)
     Linv64 = torch.linalg.solve_triangular(L64, eye.expand_as(A_d),
                                            upper=False)
     torch.testing.assert_close(L.reshape(1536, 148, 148).double(), Linv64,
                                rtol=TOL, atol=TOL)
+    torch.testing.assert_close(d.reshape(1536, 148).double(),
+                               torch.diagonal(L64, dim1=-2, dim2=-1),
+                               rtol=TOL, atol=TOL)
+
+
+@pytest.mark.cuda
+def test_blocked_on_card_628_is_four_launches(cuda_device):
+    """The refined mesh's shape: four diagonal blocks of 157; the first 64
+    instances against f64."""
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    M = torch.randn((1536, 628, 628), generator=gen, device=cuda_device)
+    A = torch.baddbmm(torch.eye(628, device=cuda_device).expand(1536, -1, -1),
+                      M, M.transpose(-1, -2), beta=0.5, alpha=1.0 / 628)
+    del M
+    before = chol_inv.launches
+    d, L = blocked_chol_linv(A)
+    assert chol_inv.launches == before + 4
+    A64 = A[:64].double()
+    L64 = torch.linalg.cholesky(A64)
+    eye = torch.eye(628, dtype=torch.float64, device=cuda_device)
+    Linv64 = torch.linalg.solve_triangular(L64, eye.expand_as(A64),
+                                           upper=False)
+    torch.testing.assert_close(L[:64].double(), Linv64, rtol=TOL, atol=TOL)

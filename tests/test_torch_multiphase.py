@@ -86,7 +86,7 @@ def test_multiphase(num_phases):
     ref = variable_phase_problem(pycollo_tpu, num_phases)
     ref.solve()
     problem = variable_phase_problem(pycollo_tpu_torch, num_phases)
-    problem.solve()
+    problem.solve(device="cpu")
     assert np.isclose(problem.solution.objective, EXPECTED_SOLUTION)
     assert problem.mesh_tolerance_met is True
     assert _history(problem) == _history(ref)

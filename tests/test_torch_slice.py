@@ -36,6 +36,8 @@ from pycollo_tpu_torch.solver.ipm import IPMOptions  # noqa: E402
 torch.set_num_threads(2)
 
 F64 = dict(tol=1e-6, max_iter=80)
+#: the port solves on the CUDA card unless the CPU is named
+CPU = [torch.device("cpu")]
 MIXED = dict(tol=1e-6, max_iter=80, kkt_precision="mixed", dc_floor=1e-7,
              dense_gmres_iters=12, eval_dtype="f32")
 
@@ -120,7 +122,7 @@ def test_compute_step_from_carried_state(problems, batch):
 def test_f64_batch_matches_reference(problems, batch):
     rj = _jax_solve(problems, batch, F64)
     res = solve_batched(problems[1].backend, theta_batch=batch[1],
-                        options=IPMOptions(**F64))
+                        options=IPMOptions(**F64), devices=CPU)
     itt = problems[1].backend.mesh_iterations[0]
     np.testing.assert_array_equal(res.converged, np.asarray(rj.converged))
     np.testing.assert_array_equal(res.iterations, np.asarray(rj.iterations))
@@ -136,7 +138,7 @@ def test_f64_batch_matches_reference(problems, batch):
 def test_mixed_batch_converges_and_agrees(problems, batch):
     rj = _jax_solve(problems, batch, MIXED)
     res = solve_batched(problems[1].backend, theta_batch=batch[1],
-                        options=IPMOptions(**MIXED))
+                        options=IPMOptions(**MIXED), devices=CPU)
     assert res.converged.all(), res.kkt_error
     assert np.asarray(rj.converged).all()
     itt = problems[1].backend.mesh_iterations[0]
@@ -164,8 +166,8 @@ def test_mesh_iteration_solve_is_the_batch_of_one(problems, batch):
     itt = problems[1].backend.mesh_iterations[0]
     itt.build_solver(IPMOptions(**F64))
     theta = batch[1]
-    res = solve_batched(problems[1].backend, theta_batch=theta)
-    one = itt.solve(theta=theta[2])
+    res = solve_batched(problems[1].backend, theta_batch=theta, devices=CPU)
+    one = itt.solve(theta=theta[2], device="cpu")
     assert one.converged and bool(res.converged[2])
     np.testing.assert_allclose(one.x_full, res.x_full[2], rtol=0, atol=1e-12)
     assert one.objective == pytest.approx(res.objective[2], rel=1e-12)
