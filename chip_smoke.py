@@ -32,9 +32,13 @@ Phases, each of which exits non-zero on failure:
    the brachistochrone also against GPOPS-II's 0.82434 (1e-4);
    then a batch of 256 perturbed cart-pole instances on the refined mesh
    through the kernel (mixed path; four diagonal blocks of 157, so four
-   launches per factorization call), with the gates of the slice phase
-   except the converged fraction (see ``REFINED_CONVERGED_MIN``); the
-   CPU f64 re-solves take the first 8 converged instances.
+   launches per factorization call), converging at least
+   ``REFINED_CONVERGED_MIN``; the same batch through the f64 path on the
+   card, whose first 8 instances are re-solved on the CPU in f64 (all
+   converged, at least 7 of 8 objectives matching to 1e-4); and the mixed
+   solve once more with the kernel's plain version in its place: the
+   kernel's share of answers agreeing with the f64 path may fall short of
+   the plain version's by at most ``REFINED_AGREE_MARGIN``.
 
 The line before the last is a JSON object describing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -308,11 +312,18 @@ GPOPS_BRACHISTOCHRONE = 0.82434
 #: ``chol_inv`` ports).  The port is held to what the reference reaches on
 #: the same route (PERF.md, Findings).
 REFINED_CONVERGED_MIN = 37 / 256
-#: the refined-mesh batch as it ran with 14 diagonal blocks of 45 (the
-#: 48-wide warp-per-matrix kernel), printed beside this run's: three runs
-#: on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, Findings)
-REFINED_14_BLOCKS = dict(solves_per_s="16.73-18.12", converged=0.3984,
-                         mean_iterations=62.98, max_iterations=80)
+#: On the refined mesh the mixed path settles in another local solution
+#: than the f64 path on about a third of the instances both converge,
+#: whatever the f32 factorization: on two batches of 256, 59-68 % agree
+#: to 1e-4 through the kernel, through its plain version in the same
+#: blocking and through cuSOLVER's whole-matrix Cholesky alike, and the
+#: first 8 both converge agree 2-7 of 8 (scripts/escalation_probe_torch.py,
+#: PERF.md, Findings).  So the kernel is held to its plain version there:
+#: the batch is solved a second time with the plain version in place of the
+#: kernel, and the kernel's share of instances agreeing with the f64 path
+#: may fall short of the plain version's by at most this much (about two
+#: standard deviations of the difference at ~190 instances).
+REFINED_AGREE_MARGIN = 0.10
 
 
 def _hold_to_oracle(name, solution, oracle, traj_tol):
@@ -385,8 +396,12 @@ def _refine_one(name, module, oracle, traj_tol):
 
 def _refined_batch(problem):
     """The kernel on the refined mesh: a batch of perturbed instances of
-    the last mesh iteration through the mixed path, as phase_slice."""
+    the last mesh iteration through the mixed path, as phase_slice, held
+    against the f64 path (on the card for the whole batch, confirmed on
+    the CPU for the first CPU_CHECK instances) and against the same solve
+    with the kernel's plain version."""
     import torch
+    from pycollo_tpu_torch.ops import block_chol
     from pycollo_tpu_torch.ops.block_chol import (MAX_BLOCK_N,
                                                   blocked_chol_linv, chol_inv)
     from pycollo_tpu_torch.parallel.batch import solve_batched
@@ -394,48 +409,18 @@ def _refined_batch(problem):
 
     it = problem.backend.mesh_iterations[-1]
     theta = _theta_chunk(it, SLICE_BATCH, 0)
+    cuda = [torch.device("cuda")]
+    mixed = IPMOptions(**SLICE_OPTIONS)
+    f64 = IPMOptions(tol=1e-6, max_iter=80)
     chol_inv.launches = 0
     blocked_chol_linv.calls = 0
-    res = solve_batched(problem.backend, devices=[torch.device("cuda")],
-                        theta_batch=theta,
-                        options=IPMOptions(**SLICE_OPTIONS))
+    res = solve_batched(problem.backend, devices=cuda, theta_batch=theta,
+                        options=mixed)
     launches = chol_inv.launches
     calls = blocked_chol_linv.calls
     nv = it._solver.dims["nv"]
     blocks = -(-nv // MAX_BLOCK_N)
     conv = float(res.converged.mean())
-    # Many instances stop unconverged here (see REFINED_CONVERGED_MIN), so
-    # the f64 re-solves take the first CPU_CHECK converged ones.  The
-    # problem is nonconvex: from the cold start the f64 path can stop
-    # unconverged or settle in another local solution on a hard instance
-    # the mixed path solved, so an instance also counts as confirmed when
-    # the f64 path started at the GPU's solution converges back to it.
-    idx = np.flatnonzero(res.converged)[:CPU_CHECK]
-    check(len(idx) == CPU_CHECK,
-          f"refined-mesh batch: only {len(idx)} instances converged")
-    f64 = IPMOptions(tol=1e-6, max_iter=80)
-    cpu_dev = [torch.device("cpu")]
-    cold = solve_batched(problem.backend, devices=cpu_dev,
-                         theta_batch=theta[idx], options=f64)
-    xs_gpu = ((res.x_full[idx] - it.r_full) / it.V_full)[:, it.free_idx]
-    warm = solve_batched(problem.backend, devices=cpu_dev,
-                         theta_batch=theta[idx], x0_batch=xs_gpu,
-                         options=f64)
-
-    def agreeing(cpu):
-        rel = np.abs(cpu.objective - res.objective[idx]) \
-            / np.abs(cpu.objective)
-        return cpu.converged & (rel < 1e-4), rel
-
-    agree_cold, rel_cold = agreeing(cold)
-    agree_warm, rel_warm = agreeing(warm)
-    agree = int((agree_cold | agree_warm).sum())
-    print(f"refine: refined-mesh GPU objectives of converged instances "
-          f"{idx.tolist()} vs CPU f64 re-solves from the guess (converged "
-          f"{cold.converged.astype(int).tolist()}), relative: {rel_cold}; "
-          f"from the GPU's solution (converged "
-          f"{warm.converged.astype(int).tolist()}), relative: {rel_warm}",
-          flush=True)
     print(f"refine: refined-mesh batch: K={it.tables[0].K} "
           f"N={it.tables[0].N} n_free={it.n_free}, "
           f"{blocks} diagonal blocks of the {nv}x{nv} condensed matrix; "
@@ -444,12 +429,7 @@ def _refined_batch(problem):
           f"{conv:.4f}, mean iterations {float(res.iterations.mean()):.2f}, "
           f"max {int(res.iterations.max())}, KKT p99 "
           f"{float(np.quantile(res.kkt_error, 0.99)):.3e}; chol_inv "
-          f"launches {launches} in {calls} factorization calls; converged "
-          f"instances confirmed by the CPU f64 path to 1e-4: {agree}/"
-          f"{CPU_CHECK} ({int(agree_cold.sum())} from the guess)",
-          flush=True)
-    print(f"refine: refined-mesh batch with 14 diagonal blocks of 45, "
-          f"recorded on the same card model: {REFINED_14_BLOCKS}",
+          f"launches {launches} in {calls} factorization calls",
           flush=True)
     check(launches > 0, "the refined-mesh batch launched chol_inv 0 times")
     check(launches == blocks * calls,
@@ -461,9 +441,58 @@ def _refined_batch(problem):
     check(conv >= REFINED_CONVERGED_MIN,
           f"refined-mesh batch: converged fraction {conv} < "
           f"{REFINED_CONVERGED_MIN}")
-    check(agree >= CPU_AGREE,
-          f"refined mesh: only {agree}/{CPU_CHECK} converged instances "
-          f"confirmed by the CPU f64 path to 1e-4")
+
+    # The f64 path from the same guess: on the card for the whole batch
+    # (no kernel), and on the CPU for the first CPU_CHECK instances, which
+    # must converge and agree with the card's.
+    ref = solve_batched(problem.backend, devices=cuda, theta_batch=theta,
+                        options=f64)
+    cpu = solve_batched(problem.backend, devices=[torch.device("cpu")],
+                        theta_batch=theta[:CPU_CHECK], options=f64)
+
+    def agreeing(a, b):
+        """Instances (of the first len(a)) both converged, with objectives
+        agreeing to 1e-4."""
+        k = len(a.objective)
+        return a.converged & b.converged[:k] & (
+            np.abs(a.objective - b.objective[:k])
+            < 1e-4 * np.abs(b.objective[:k]))
+
+    ref_cpu = agreeing(cpu, ref)
+    print(f"refine: refined-mesh f64 path on the card: converged "
+          f"{float(ref.converged.mean()):.4f} in {ref.solve_time:.3f} s; "
+          f"the first {CPU_CHECK} re-solved on the CPU in f64: converged "
+          f"{int(cpu.converged.sum())}, agreeing to 1e-4 "
+          f"{int(ref_cpu.sum())}", flush=True)
+    check(cpu.converged.all(), "refined-mesh CPU f64 re-solve not converged")
+    check(ref_cpu.sum() >= CPU_AGREE,
+          f"refined mesh: only {int(ref_cpu.sum())}/{CPU_CHECK} CPU f64 "
+          f"re-solves agree with the f64 path on the card")
+
+    # The same mixed solve with the kernel's plain version in its place.
+    saved = block_chol.chol_inv
+    block_chol.chol_inv = block_chol.chol_inv_reference
+    try:
+        plain = solve_batched(problem.backend, devices=cuda,
+                              theta_batch=theta, options=mixed)
+    finally:
+        block_chol.chol_inv = saved
+    shares = {}
+    for name, r in (("kernel", res), ("plain version", plain)):
+        both = r.converged & ref.converged
+        shares[name] = agreeing(r, ref).sum() / both.sum()
+        first = np.flatnonzero(both)[:CPU_CHECK]
+        print(f"refine: refined-mesh batch through the {name}: converged "
+              f"{float(r.converged.mean()):.4f} in {r.solve_time:.3f} s; "
+              f"of {int(both.sum())} instances it and the f64 path both "
+              f"converge, {int(agreeing(r, ref).sum())} = "
+              f"{shares[name]:.4f} agree to 1e-4 (first {CPU_CHECK} of "
+              f"them: {int(agreeing(r, ref)[first].sum())})", flush=True)
+    check(shares["kernel"] >= shares["plain version"] - REFINED_AGREE_MARGIN,
+          f"refined mesh: the kernel's share of answers agreeing with the "
+          f"f64 path, {shares['kernel']:.4f}, falls short of the plain "
+          f"version's {shares['plain version']:.4f} by more than "
+          f"{REFINED_AGREE_MARGIN}")
     return dict(launches=launches, calls=calls)
 
 

@@ -11,11 +11,11 @@
 //
 // What bounds it on an H100: on the interior-point main path one call
 // factors the whole condensed matrix of the default cart-pole mesh,
-// (1536, 148, 148): 134.6 MB in and 134.6 MB out, 80 us at 3.35 TB/s, and
-// 2 n^3 / 3 flops per matrix, 3.3 GFLOP, 50 us at 67 TFLOP/s in f32.  The
-// refined mesh's four diagonal blocks of 628 are (1536, 157, 157): 303 MB,
-// 90 us.  So bytes bound it, if the sequential depth of the factorization
-// can be hidden.
+// (1536, 148, 148): 67.7 MB in (the lower triangle) and 134.6 MB out, 60 us
+// at 3.35 TB/s, and 2 n^3 / 3 flops per matrix, 3.3 GFLOP, 50 us at 67
+// TFLOP/s in f32.  The refined mesh's four diagonal blocks of 628 are
+// (1536, 157, 157): 227.6 MB, 68 us.  So bytes bound it, if the sequential
+// depth of the factorization can be hidden.
 //
 // Design: the whole matrix lives in shared memory (np x (np + 4) floats,
 // np = n rounded up to 8; with its scratch at most 112 KB, at n = 160, so
@@ -156,7 +156,7 @@ chol_linv_kernel(const float* __restrict__ A, float* __restrict__ out,
       }
     }
   }
-  __syncthreads();  // phase end: load
+  __syncthreads();
 
   if (warp == 0) factor_diag_block(S, pitch, dinv, dL, 0, lane);
   __syncthreads();
@@ -250,7 +250,6 @@ chol_linv_kernel(const float* __restrict__ A, float* __restrict__ out,
     }
     __syncthreads();
   }
-  // phase end: factorization
 
   // In-place inverse X = L^{-1}, left to right by panels of 8 (right-looking
   // forward substitution).  Invariant at the top of the step for panel j0:
@@ -329,7 +328,6 @@ chol_linv_kernel(const float* __restrict__ A, float* __restrict__ out,
     }
     __syncthreads();
   }
-  // phase end: inverse
 
   // Store X (zeros above the diagonal included), a warp per row, coalesced.
   {
@@ -344,7 +342,6 @@ chol_linv_kernel(const float* __restrict__ A, float* __restrict__ out,
       for (int i = tid; i < n; i += kThreads) diag[b * n + i] = dL[i];
     }
   }
-  // phase end: store
 }
 
 template <int kThreads>

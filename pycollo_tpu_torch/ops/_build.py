@@ -52,20 +52,18 @@ def _compile(src: Path, out: Path) -> None:
     os.replace(tmp, out)   # atomic: concurrent builders never see a partial
 
 
-def build(src: Path) -> ctypes.CDLL:
-    """Compile ``src`` (unless its build is current) and load it."""
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
-    if not out.exists():
-        _compile(src, out)
-    return ctypes.CDLL(str(out))
-
-
 def load(source: str) -> ctypes.CDLL:
     """Return the loaded library built from ``csrc/<source>``."""
     with _lock:
         lib = _libs.get(source)
-        if lib is None:
-            lib = _libs[source] = build(CSRC_DIR / source)
+        if lib is not None:
+            return lib
+        src = CSRC_DIR / source
+        digest = hashlib.sha256(src.read_bytes()
+                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        out = BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
+        if not out.exists():
+            _compile(src, out)
+        lib = ctypes.CDLL(str(out))
+        _libs[source] = lib
         return lib

@@ -9,8 +9,9 @@ For each batch B and block size n it prints the kernel's time
 (``chol_inv``), the library route's (``torch.linalg.cholesky_ex`` +
 ``solve_triangular``: the yardstick, which the package never calls), the
 plain version's (``chol_inv_reference``), the bound (the larger of the
-bytes moved, each input read once and each output written once, over the
-card's memory rate and 2 n^3 / 3 flops per matrix over its f32 rate), the
+bytes moved over the card's memory rate, the lower triangle of each input
+read once and each output written once, and 2 n^3 / 3 flops per matrix
+over its f32 rate), the
 share of the bound the kernel reaches, and the kernel's largest difference
 from the plain version.  Then it times the solver's factorization,
 ``blocked_chol_linv``, at its two shapes: (1536, 148, 148) with the default
@@ -79,8 +80,10 @@ def median_ms(fn, inputs, samples=10, inner=20):
 
 def bound_ms(B, n, diag=False):
     """``(ms, "bytes" or "operations")``: the least time the card could
-    take to compute ``L^{-1}`` (and ``diag(L)``) of a (B, n, n) f32 stack."""
-    nbytes = 4 * (2 * B * n * n + (B * n if diag else 0))
+    take to compute ``L^{-1}`` (and ``diag(L)``) of a (B, n, n) f32 stack:
+    the function reads only the lower triangle of A, n (n + 1) / 2 floats
+    per matrix, and writes n^2 (and n)."""
+    nbytes = 4 * B * (n * (n + 1) // 2 + n * n + (n if diag else 0))
     flops = B * 2 * n ** 3 / 3
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = flops / PEAK_F32_FLOPS

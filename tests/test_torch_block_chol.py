@@ -182,6 +182,22 @@ def test_blocked_default_splits_into_the_fewest_blocks():
     np.testing.assert_allclose(d.numpy(), diag64, rtol=TOL, atol=TOL)
 
 
+def test_bound_counts_the_lower_triangle_read():
+    """The kernel reads n (n + 1) / 2 floats of each matrix and writes n^2
+    (and n of diag(L)); 2 n^3 / 3 flops bound it only at large n."""
+    from pycollo_tpu_torch.ops.bench_chol import (PEAK_BYTES_PER_S,
+                                                  PEAK_F32_FLOPS, bound_ms)
+    ms, by = bound_ms(1536, 148)
+    assert by == "bytes"
+    assert ms == pytest.approx(
+        1e3 * 4 * 1536 * (148 * 149 / 2 + 148 ** 2) / PEAK_BYTES_PER_S)
+    ms_d, _ = bound_ms(1536, 148, diag=True)
+    assert ms_d - ms == pytest.approx(1e3 * 4 * 1536 * 148 / PEAK_BYTES_PER_S)
+    ms, by = bound_ms(1536, 628, diag=True)
+    assert by == "operations"
+    assert ms == pytest.approx(1e3 * 1536 * 2 * 628 ** 3 / 3 / PEAK_F32_FLOPS)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [3, 8, 15, 37, 45, 48, 100, 148, 157, 160])
 @pytest.mark.parametrize("B", [37, 1536])
