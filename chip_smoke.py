@@ -38,10 +38,25 @@ Phases, each of which exits non-zero on failure:
    converged, at least 7 of 8 objectives matching to 1e-4); and the mixed
    solve once more with the kernel's plain version in its place: the
    kernel's share of answers agreeing with the f64 path may fall short of
-   the plain version's by at most ``REFINED_AGREE_MARGIN``.
+   the plain version's by at most ``REFINED_AGREE_MARGIN``;
+6. banded: the block-banded path (``linear_solver="block-banded"``, f64,
+   ``IPMOptions(tol=1e-6, max_iter=80)`` as ``bench.py`` builds it), which
+   launches no hand-written kernel: a batch of 64 perturbed default-mesh
+   cart-pole instances (at least ``BANDED_CONVERGED_MIN`` converged, KKT
+   at most 1e-6 on those, and the first 8 re-solved on the CPU through the
+   dense f64 path, at least 7 of 8 objectives matching to 1e-4), with
+   launches per IPM iteration from ``torch.profiler`` over the first
+   ``BANDED_PROFILE_ITERS`` iterations;
+   ``problem.solve(device="cuda")`` on the brachistochrone (GPOPS-II's
+   0.82434 to 1e-4, mesh tolerance met); and the first 64 instances of the
+   refined-mesh batch, held against the dense f64 path on the card (at
+   least ``BANDED_REFINED_REF - 1`` of the first 8 converged, the JAX
+   package's count there from ``scripts/banded_refined_reference.py``, and
+   at least 7 of the first 8 both converge agreeing to 1e-4).
 
-The line before the last is a JSON object describing every kernel of the
-path; the last line is ``{"ok": true, "device": {...}}``.
+Each phase prints its wall time.  The line before the last is a JSON
+object describing every kernel of the path; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -394,6 +409,15 @@ def _refine_one(name, module, oracle, traj_tol):
     return problem
 
 
+def _agreeing(a, b):
+    """Per instance of a (the first len(a) of b): both converged, and the
+    objectives agree to 1e-4 relative."""
+    k = len(a.objective)
+    return a.converged & b.converged[:k] & (
+        np.abs(a.objective - b.objective[:k])
+        < 1e-4 * np.abs(b.objective[:k]))
+
+
 def _refined_batch(problem):
     """The kernel on the refined mesh: a batch of perturbed instances of
     the last mesh iteration through the mixed path, as phase_slice, held
@@ -450,15 +474,7 @@ def _refined_batch(problem):
     cpu = solve_batched(problem.backend, devices=[torch.device("cpu")],
                         theta_batch=theta[:CPU_CHECK], options=f64)
 
-    def agreeing(a, b):
-        """Instances (of the first len(a)) both converged, with objectives
-        agreeing to 1e-4."""
-        k = len(a.objective)
-        return a.converged & b.converged[:k] & (
-            np.abs(a.objective - b.objective[:k])
-            < 1e-4 * np.abs(b.objective[:k]))
-
-    ref_cpu = agreeing(cpu, ref)
+    ref_cpu = _agreeing(cpu, ref)
     print(f"refine: refined-mesh f64 path on the card: converged "
           f"{float(ref.converged.mean()):.4f} in {ref.solve_time:.3f} s; "
           f"the first {CPU_CHECK} re-solved on the CPU in f64: converged "
@@ -480,34 +496,278 @@ def _refined_batch(problem):
     shares = {}
     for name, r in (("kernel", res), ("plain version", plain)):
         both = r.converged & ref.converged
-        shares[name] = agreeing(r, ref).sum() / both.sum()
+        shares[name] = _agreeing(r, ref).sum() / both.sum()
         first = np.flatnonzero(both)[:CPU_CHECK]
         print(f"refine: refined-mesh batch through the {name}: converged "
               f"{float(r.converged.mean()):.4f} in {r.solve_time:.3f} s; "
               f"of {int(both.sum())} instances it and the f64 path both "
-              f"converge, {int(agreeing(r, ref).sum())} = "
+              f"converge, {int(_agreeing(r, ref).sum())} = "
               f"{shares[name]:.4f} agree to 1e-4 (first {CPU_CHECK} of "
-              f"them: {int(agreeing(r, ref)[first].sum())})", flush=True)
+              f"them: {int(_agreeing(r, ref)[first].sum())})", flush=True)
     check(shares["kernel"] >= shares["plain version"] - REFINED_AGREE_MARGIN,
           f"refined mesh: the kernel's share of answers agreeing with the "
           f"f64 path, {shares['kernel']:.4f}, falls short of the plain "
           f"version's {shares['plain version']:.4f} by more than "
           f"{REFINED_AGREE_MARGIN}")
-    return dict(launches=launches, calls=calls)
+    return dict(launches=launches, calls=calls, theta=theta, ref=ref)
 
 
 def phase_refine():
     sys.path.insert(0, str(ROOT / "examples"))
     problems = {spec[0]: _refine_one(*spec) for spec in REFINE_PROBLEMS}
-    return _refined_batch(problems["cart-pole"])
+    return dict(_refined_batch(problems["cart-pole"]),
+                problem=problems["cart-pole"])
+
+
+#: the configuration ``bench.py`` builds the block-banded path with (f64)
+BANDED_OPTIONS = dict(tol=1e-6, max_iter=80)
+BANDED_BATCH = 64
+#: least converged fraction of a default-mesh banded batch
+#: (tests/integration/test_block_banded_solve.py:86)
+BANDED_CONVERGED_MIN = 0.85
+#: instances of the first 8 of the refined-mesh batch (K=21, N=127,
+#: n_free=628) that the JAX package's banded path converges on the CPU
+#: (scripts/banded_refined_reference.py; PERF.md, Findings); the card must
+#: converge at least this many less one
+BANDED_REFINED_REF = 8
+#: profiler ranges of the structured step (solver/ipm.py)
+BANDED_RANGES = ("banded.assemble", "banded.factor", "banded.gmres",
+                 "banded.corrector", "banded.escalation")
+
+
+#: IPM iterations of the profiled window: processing the trace takes
+#: ~10 s per iteration on the default mesh and ~16 s on the refined one
+#: (a whole batch's, minutes); the counts per iteration barely move (7,497
+#: kernels per iteration over a whole batch, 7,517 over 6 iterations)
+BANDED_PROFILE_ITERS = 3
+
+
+def _banded_profile(problem, theta):
+    """The first ``BANDED_PROFILE_ITERS`` IPM iterations of the batch under
+    ``torch.profiler``: device operations (kernels and copies) and
+    kernel-launch calls per iteration, the device's busy share of the window, host time and device
+    span of each structured-step range, and the kernels that take the most
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pycollo_tpu_torch.parallel.batch import solve_batched
+    from pycollo_tpu_torch.solver.ipm import IPMOptions
+    opts = IPMOptions(**dict(BANDED_OPTIONS, max_iter=BANDED_PROFILE_ITERS))
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        res = solve_batched(problem.backend, theta_batch=theta,
+                            devices=[torch.device("cuda")], options=opts)
+    ka = prof.key_averages()
+    total_s = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    cuda_ev = [e for e in ka if e.device_type == DeviceType.CUDA]
+    n_it = int(res.iterations.max())
+    kernels = sum(e.count for e in cuda_ev)
+    api = sum(e.count for e in ka
+              if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                           "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+    ranges = {}
+    for e in ka:
+        if e.key in BANDED_RANGES:
+            host, dev = ranges.get(e.key, (0.0, 0.0))
+            if e.device_type == DeviceType.CUDA:
+                dev = dev_us(e) / 1e6
+            else:
+                host = e.cpu_time_total / 1e6
+            ranges[e.key] = (host, dev)
+    top = sorted((e for e in cuda_ev if e.key not in BANDED_RANGES),
+                 key=dev_us, reverse=True)[:8]
+    return dict(kernels=kernels, api=api, n_it=n_it, total_s=total_s,
+                busy_s=sum(dev_us(e) for e in cuda_ev
+                           if e.key not in BANDED_RANGES) / 1e6,
+                wall_s=res.solve_time, ranges=ranges,
+                top=[(e.key, e.count, dev_us(e) / 1e6) for e in top])
+
+
+def _print_profile(label, pr):
+    n = pr["n_it"]
+    print(f"banded: {label} under torch.profiler, the first {n} IPM "
+          f"iterations: {pr['kernels']} device operations (kernels and "
+          f"copies) = {pr['kernels'] / n:.1f} per iteration, {pr['api']} "
+          f"kernel-launch calls = {pr['api'] / n:.1f} per iteration; "
+          f"device busy {pr['busy_s']:.3f} s of the profiled "
+          f"{pr['wall_s']:.3f} s ({pr['busy_s'] / pr['wall_s']:.4f}); "
+          f"{pr['total_s']:.1f} s with the trace's processing", flush=True)
+    for key, (host_s, dev_s) in sorted(pr["ranges"].items()):
+        print(f"banded: {label} range {key}: host {host_s:.3f} s, device "
+              f"span {dev_s:.3f} s", flush=True)
+    for key, count, dev_s in pr["top"]:
+        print(f"banded: {label} kernel {key[:70]}: {count} launches, "
+              f"{dev_s * 1e3:.1f} ms, {dev_s / count * 1e6:.1f} us each",
+              flush=True)
+
+
+def _banded_batch(label, problem, theta, warm_theta=None):
+    """Solve ``theta`` on the card through the banded path (after a
+    warm-up on ``warm_theta``), then once more under the profiler."""
+    import torch
+
+    from pycollo_tpu_torch.parallel.batch import solve_batched
+    from pycollo_tpu_torch.solver.ipm import IPMOptions
+    cuda = [torch.device("cuda")]
+    problem.settings.linear_solver = "block-banded"
+    it = problem.backend.mesh_iterations[-1]
+    t0 = time.perf_counter()
+    it.build_solver(IPMOptions(**BANDED_OPTIONS))
+    check(it._solver._compute_step_structured is not None,
+          f"{label}: the solver did not take the banded path")
+    print(f"banded: {label} solver built in {time.perf_counter() - t0:.2f} "
+          f"s", flush=True)
+    if warm_theta is not None:
+        warm = solve_batched(problem.backend, devices=cuda,
+                             theta_batch=warm_theta)
+        print(f"banded: {label} warm-up solve {warm.solve_time:.3f} s",
+              flush=True)
+    res = solve_batched(problem.backend, devices=cuda, theta_batch=theta)
+    B = len(theta)
+    check(res.x_full.shape == (B, it.layout.n_full)
+          and np.isfinite(res.x_full).all(),
+          f"{label}: non-finite or misshapen solutions")
+    n_it = int(res.iterations.max())
+    print(f"banded: {label}: K={it.tables[0].K} N={it.tables[0].N} "
+          f"n_free={it.n_free}; batch {B} solved in {res.solve_time:.3f} s "
+          f"= {B / res.solve_time:.2f} solves/s; converged "
+          f"{float(res.converged.mean()):.4f}, mean iterations "
+          f"{float(res.iterations.mean()):.2f}, max {n_it}; "
+          f"{res.solve_time / n_it:.4f} s per batched IPM iteration; KKT "
+          f"max over converged "
+          f"{float(res.kkt_error[res.converged].max(initial=0.0)):.3e}",
+          flush=True)
+    _print_profile(label, _banded_profile(problem, theta))
+    return res
+
+
+def phase_banded(refined):
+    """The block-banded path on the card: no hand-written kernel runs; the
+    batches and the brachistochrone refinement are held to the dense f64
+    path and to GPOPS-II."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch
+    from cart_pole_swing_up_torch import build_problem as cart_pole
+    from brachistochrone_torch import build_problem as brachistochrone
+    from pycollo_tpu_torch.ops.block_chol import chol_inv
+    from pycollo_tpu_torch.parallel.batch import solve_batched
+    from pycollo_tpu_torch.solver.ipm import IPMOptions
+
+    print("banded: the block-banded path launches no hand-written kernel: "
+          "its f64 blocks are factored by cholesky_ex and applied by "
+          "triangular substitution (solver/banded.py), where chol_inv "
+          "gives an f32 explicit inverse", flush=True)
+    chol_inv.launches = 0
+
+    # Default-mesh cart-pole, B = 64, against the dense f64 path on the CPU.
+    t0 = time.perf_counter()
+    problem = cart_pole()
+    problem.settings.console_out_progress = False
+    problem.settings.nlp_tolerance = 1e-6
+    problem.initialise()
+    print(f"banded: default-mesh cart-pole initialised in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    it = problem.backend.mesh_iterations[0]
+    theta = _theta_chunk(it, BANDED_BATCH, 0)
+    res = _banded_batch("default mesh", problem, theta,
+                        warm_theta=_theta_chunk(it, BANDED_BATCH, 1000))
+    conv = float(res.converged.mean())
+    check(conv >= BANDED_CONVERGED_MIN,
+          f"default-mesh banded batch: converged {conv} < "
+          f"{BANDED_CONVERGED_MIN}")
+    check(bool((res.kkt_error[res.converged] <= 1e-6).all()),
+          "default-mesh banded batch: KKT above 1e-6 on a converged instance")
+    problem.settings.linear_solver = "condensed-cholesky"
+    cpu = solve_batched(problem.backend, devices=[torch.device("cpu")],
+                        theta_batch=theta[:CPU_CHECK],
+                        options=IPMOptions(**BANDED_OPTIONS))
+    agree = _agreeing(cpu, res)
+    rel = np.abs(cpu.objective - res.objective[:CPU_CHECK]) \
+        / np.abs(cpu.objective)
+    print(f"banded: default mesh, GPU banded objectives vs CPU dense f64 "
+          f"re-solves ({cpu.solve_time:.3f} s), relative: {rel}; agreeing "
+          f"{int(agree.sum())}/{CPU_CHECK}", flush=True)
+    check(agree.sum() >= CPU_AGREE,
+          f"default-mesh banded batch: only {int(agree.sum())}/{CPU_CHECK} "
+          f"agree with the CPU dense f64 path")
+
+    # problem.solve() on the brachistochrone through the banded path.
+    problem = brachistochrone()
+    problem.settings.console_out_progress = False
+    problem.settings.linear_solver = "block-banded"
+    t0 = time.perf_counter()
+    solution = problem.solve(device=torch.device("cuda"))
+    wall = time.perf_counter() - t0
+    for r in problem.mesh_iterations:
+        check(r.ipm_result.x.device.type == "cuda",
+              "brachistochrone (banded): solved off the card")
+        print(f"banded: brachistochrone mesh iteration {r.iteration.number}"
+              f": N={[t.N for t in r.iteration.tables]} IPM iterations "
+              f"{int(r.ipm_result.iterations)} KKT "
+              f"{float(r.ipm_result.kkt_error):.3e} solve "
+              f"{r.iteration.profiler.spans['NLP solve'].duration:.3f} s",
+              flush=True)
+    gp = abs(solution.objective - GPOPS_BRACHISTOCHRONE) \
+        / GPOPS_BRACHISTOCHRONE
+    oracle = float(np.load(ROOT / "tests" / "data"
+                           / "trajectory_brachistochrone.npz")["objective"])
+    print(f"banded: brachistochrone problem.solve() in {wall:.3f} s: "
+          f"objective {solution.objective!r}; GPOPS-II relative {gp:.3e}; "
+          f"stored f64 oracle {oracle!r}, difference "
+          f"{solution.objective - oracle:.3e}", flush=True)
+    check(problem.mesh_tolerance_met,
+          "brachistochrone (banded): mesh tolerance not met")
+    check(gp <= 1e-4, f"brachistochrone (banded): objective "
+          f"{solution.objective} vs GPOPS-II 0.82434: {gp:.3e}")
+
+    # The refined cart-pole mesh, the first 64 of the refine phase's batch,
+    # against the dense f64 path on the card on the same instances.
+    theta = refined["theta"][:BANDED_BATCH]
+    ref = refined["ref"]
+    res = _banded_batch("refined mesh", refined["problem"], theta)
+    first = int(res.converged[:CPU_CHECK].sum())
+    both = np.flatnonzero(res.converged & ref.converged[:BANDED_BATCH])
+    agree = _agreeing(res, ref)
+    print(f"banded: refined mesh: the first {CPU_CHECK} converged {first} "
+          f"(the JAX package's banded path on the CPU: "
+          f"{BANDED_REFINED_REF}); dense f64 path on the card converged "
+          f"{int(ref.converged[:BANDED_BATCH].sum())}/{BANDED_BATCH}; of "
+          f"{len(both)} both converge {int(agree.sum())} agree to 1e-4 "
+          f"(first {CPU_CHECK} of them: {int(agree[both[:CPU_CHECK]].sum())})",
+          flush=True)
+    check(first >= BANDED_REFINED_REF - 1,
+          f"refined-mesh banded batch: {first} of the first {CPU_CHECK} "
+          f"converged, the reference's same route {BANDED_REFINED_REF}")
+    check(len(both) >= CPU_CHECK
+          and agree[both[:CPU_CHECK]].sum() >= CPU_AGREE,
+          f"refined-mesh banded batch: of the first {CPU_CHECK} instances "
+          f"both paths converge, {int(agree[both[:CPU_CHECK]].sum())} agree "
+          f"with the dense f64 path")
+    check(chol_inv.launches == 0,
+          f"the banded phase launched chol_inv {chol_inv.launches} times")
+
+
+def _timed(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def main():
     sys.path.insert(0, str(ROOT))
-    card = phase_device()
-    phase_build()
-    kern = phase_kernel()
-    sl = phase_slice()
+    card = _timed("device", phase_device)
+    _timed("build", phase_build)
+    kern = _timed("kernel", phase_kernel)
+    sl = _timed("slice", phase_slice)
     print(f"slice: {card}: batch {SLICE_BATCH} solved in "
           f"{sl['solve_s']:.3f} s = {sl['rate']:.2f} solves/s; converged "
           f"{sl['conv']:.4f}, mean iterations {sl['iters']:.2f}, KKT p99 "
@@ -515,12 +775,14 @@ def main():
           f"{sl['calls']} factorization calls; CPU "
           f"re-solves agreeing to 1e-4: f64 {sl['agree64']}/{CPU_CHECK}, "
           f"mixed {sl['agree_mx']}/{CPU_CHECK}", flush=True)
-    rf = phase_refine()
+    rf = _timed("refine", phase_refine)
+    _timed("banded", phase_banded, rf)
     import torch
     print(f"chol_inv launches per path: slice {sl['launches']} "
           f"({sl['launches'] / sl['calls']:g} per factorization call), "
           f"refined-mesh batch {rf['launches']} "
-          f"({rf['launches'] / rf['calls']:g} per call)", flush=True)
+          f"({rf['launches'] / rf['calls']:g} per call), banded 0",
+          flush=True)
     print(json.dumps({"kernels": [{
         "name": "chol_inv",
         "route": "cuda",

@@ -15,6 +15,7 @@ from typing import Dict, Mapping, Sequence
 import numpy as np
 import torch
 
+from .solver.banded import ArrowBlocks, BTDFactors, PhaseBand
 from .solver.ipm import _State
 
 #: per-phase mesh tables (lists, one array per phase)
@@ -27,7 +28,8 @@ _STATE_BOOL = ("done", "rmode")
 
 
 def _tensor(a, dtype, device):
-    return torch.as_tensor(np.asarray(a)).to(dtype=dtype, device=device)
+    # a copy: arrays exported from JAX are read-only
+    return torch.as_tensor(np.array(a)).to(dtype=dtype, device=device)
 
 
 def iteration_arrays_from_numpy(arrays: Mapping, device="cpu",
@@ -68,3 +70,34 @@ def ipm_state_from_numpy(arrays: Mapping, device="cpu",
             dt = dtype
         fields[name] = _tensor(arrays[name], dt, device)
     return _State(**fields)
+
+
+def arrow_blocks_from_numpy(blocks, device="cpu",
+                            dtype: torch.dtype = torch.float64) -> ArrowBlocks:
+    """Banded KKT blocks as the port's ``ArrowBlocks``.
+
+    ``blocks`` has the fields of :class:`ArrowBlocks` (e.g. the JAX
+    package's ``ArrowBlocks``) holding arrays: ``phases`` a sequence of
+    (``Dblk``, ``Ublk``, ``Cblk``, ``Gz``) records, ``B``, ``Gw``, ``d_ib``
+    with any leading axes, and the static masks ``zmask`` (one (K, MB) per
+    phase) and ``wmask`` (nw,) without them.
+    """
+    phases = tuple(PhaseBand(*(_tensor(getattr(pb, f), dtype, device)
+                               for f in PhaseBand._fields))
+                   for pb in blocks.phases)
+    return ArrowBlocks(phases=phases,
+                       B=_tensor(blocks.B, dtype, device),
+                       Gw=_tensor(blocks.Gw, dtype, device),
+                       d_ib=_tensor(blocks.d_ib, dtype, device),
+                       zmask=tuple(_tensor(z, dtype, device)
+                                   for z in blocks.zmask),
+                       wmask=_tensor(blocks.wmask, dtype, device))
+
+
+def btd_factors_from_numpy(factors, device="cpu",
+                           dtype: torch.dtype = torch.float64) -> BTDFactors:
+    """Block-tridiagonal Cholesky factors (fields ``L``, ``F``, ``ok``, e.g.
+    the JAX package's ``BTDFactors``) as the port's ``BTDFactors``."""
+    return BTDFactors(L=_tensor(factors.L, dtype, device),
+                      F=_tensor(factors.F, dtype, device),
+                      ok=_tensor(factors.ok, torch.bool, device))

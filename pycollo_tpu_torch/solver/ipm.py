@@ -25,9 +25,15 @@ f64 residual.
 
 Ported: the dense path with the Wächter–Biegler filter line search and the
 l1-merit Armijo line search, speculative and sequential ("loop") inertia
-correction, feasibility restoration, both barrier strategies, and generic
-``torch.func`` derivatives for NLPs given without structured ones.  Not
-ported yet: the block-banded structured path (``compute_step_structured``).
+correction, feasibility restoration, both barrier strategies, generic
+``torch.func`` derivatives for NLPs given without structured ones, and the
+block-banded structured path (``linear_solver="block-banded"``,
+``compute_step_structured``): slacks eliminated analytically, the
+condensed system factored in banded-arrowhead form (``solver/banded.py``)
+at a speculative ladder of ``dw`` levels whose last level is the
+convexified Hessian, and the step solved by GMRES with the exact banded
+matvec, matrix-free (J^T lam from one VJP, J dx from one JVP; no dense
+Jacobian).  The banded path runs in the working dtype (f64).
 """
 
 from __future__ import annotations
@@ -38,9 +44,12 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
-from torch.func import grad, hessian, jacfwd, jacrev, vjp, vmap
+from torch.func import grad, hessian, jacfwd, jacrev, jvp, vjp, vmap
+from torch.profiler import record_function
 
 from ..utils import DeviceConstants
+from .banded import ArrowBlocks, PhaseBand, _mv
+from .krylov import gmres_right
 
 
 @dataclass(frozen=True)
@@ -86,6 +95,15 @@ class IPMOptions:
     #: dc caps the condition number of the condensed matrix at ~1/dc, which
     #: is what makes an f32 factorization converge.
     dc_floor: float = 1e-12
+    #: dual-regularization floor for the block-banded path, capped at
+    #: 0.1 * tol.  Its factorization carries the low-rank integral columns
+    #: amplified by 1/D ~ 1/dc; with the dense path's negligible floor that
+    #: term dominates the band by ~1e12 at small mu and the Newton step is
+    #: lost (measured on cart-pole: converges to 1e-4, then diverges).  The
+    #: floor must sit below the tolerance (the reachable KKT residual is
+    #: O(dc)-limited) but high enough to cap the amplification; the GMRES
+    #: refinement recovers the accuracy the regularization gives up.
+    dc_floor_banded: float = 3e-7
     #: feasibility restoration (IPOPT section 3.3 analogue): when the
     #: filter line search keeps failing with significant constraint
     #: violation, minimize the violation itself until it drops by
@@ -135,6 +153,13 @@ class IPMOptions:
     #: VJP, and the state, residuals, line search and reported KKT error
     #: stay f64.  Requires kkt_precision="mixed".
     eval_dtype: str = "f64"
+    #: Krylov iterations for the structured (block-banded) step solve.  The
+    #: banded factorization's nested Schur layers cancel in a few
+    #: border/low-rank directions near a solution (iteration-matrix spectral
+    #: radius ~150: plain iterative refinement diverges), so the step is
+    #: solved by GMRES with the factorization as right preconditioner; the
+    #: few bad directions contract in as many iterations.
+    gmres_iters: int = 10
 
 
 class IPMResult(NamedTuple):
@@ -195,11 +220,6 @@ def _where(cond, a, b):
     nd = max(a.dim(), b.dim() if torch.is_tensor(b) else 0)
     return torch.where(cond.reshape(cond.shape + (1,) * (nd - cond.dim())),
                        a, b)
-
-
-def _mv(M, v):
-    """Batched matrix-vector product (B, p, q) @ (B, q) -> (B, p)."""
-    return (M @ v[..., None])[..., 0]
 
 
 def _first_true(mask):
@@ -280,6 +300,7 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
     J_s[ineq_idx, np.arange(ns)] = -1.0
     consts = DeviceConstants(vl=vl_f, vu=vu_f, has_l=has_l, has_u=has_u,
                              Js=J_s, rhs_eq=rhs_eq, ineq_idx=ineq_idx,
+                             eq_mask=eq_mask_np,
                              xl=xl, xu=xu, cl_in=cl[ineq_idx],
                              cu_in=cu[ineq_idx])
 
@@ -485,7 +506,6 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
             """Coupled-KKT GMRES in the factorization dtype: the f64 rhs
             pins the outer fixed point; the refinement only needs accuracy
             relative to the step."""
-            from .krylov import gmres_right
             fdt = fac_dtype or v.dtype
             dK_f = dK64.to(fdt)
             dc_f = dc_c.to(fdt)
@@ -579,7 +599,8 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
                 dv = _where(esc, dv_n, dv)
                 dlam = _where(esc, dlam_n, dlam)
                 ok = _where(esc, ok_n, ok)
-                factors = _tree_where(esc, fac_n, factors)
+                factors = _tree_map(lambda a, b: _where(esc, a, b), fac_n,
+                                    factors)
                 k = k + esc.to(torch.int32)
             # dw of the SELECTED factors (fed to the corrector's exact KKT
             # operator) vs the value reported to the dw_last heuristic: the
@@ -619,8 +640,8 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
                 dv = _where(esc, dv_n, dv)
                 dlam = _where(esc, dlam_n, dlam)
                 ok = _where(esc, ok_n, ok)
-                factors = fac_n if factors is None \
-                    else _tree_where(esc, fac_n, factors)
+                factors = fac_n if factors is None else _tree_map(
+                    lambda a, b: _where(esc, a, b), fac_n, factors)
                 k = k + esc.to(torch.int32)
             dw_used = dw_op
 
@@ -645,6 +666,175 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
             dv_c = ksolve(fac, dK64_, -_mv(Jt, rg_soc / dc_c))
             dlam_c = (_mv(J, dv_c) + rg_soc) / dc_c
             return dv_c, dlam_c
+
+        return dv, dlam, dzl, dzu, step_dir, dw_used, ok, corrector
+
+    kkt = derivatives.get("kkt")
+
+    def compute_step_structured(v, lam, zl, zu, mu, dw_last, theta, gf, rg,
+                                Jtlam, c_vjp, restore):
+        """Newton step of every instance via the block-banded arrowhead KKT
+        factorization (the ``linear_solver="block-banded"`` path).
+
+        Matrix-free counterpart of ``compute_step``: slacks are eliminated
+        analytically (per-row dual regularization ``D_i = dc +
+        1/sigma_s_i``), the condensed system over the original variables is
+        assembled and factored in banded-arrowhead form by ``kkt``, and
+        every residual uses the VJP ``c_vjp`` or a JVP of the constraints —
+        no dense Jacobian or Hessian.  ``gf`` is zero and the Hessian
+        multipliers are dropped for instances in restoration (``restore``,
+        (B,) bool), with a proximal identity through the barrier diagonal.
+        Returns what ``compute_step`` returns.
+        """
+        B = v.shape[0]
+        x = v[:, :n]
+        hl, hu = consts("has_l", v), consts("has_u", v)
+        ineq = consts("ineq_idx", v)
+        dl, du = dists(v)
+        mu_c = mu[:, None]
+        sig_l = torch.where(hl, zl / dl, 0.0)
+        sig_u = torch.where(hu, zu / du, 0.0)
+        sig = sig_l + sig_u
+        mu_dl = torch.where(hl, mu_c / dl, 0.0)
+        mu_du = torch.where(hu, mu_c / du, 0.0)
+        sig_x = sig[:, :n]
+        sig_s = torch.clamp(sig[:, n:], min=1e-300)
+        rd_x = gf + Jtlam - mu_dl[:, :n] + mu_du[:, :n]
+        rd_s = -lam[:, ineq] - mu_dl[:, n:] + mu_du[:, n:]
+        # The reachable KKT residual is O(dc)-limited through the relaxed
+        # equality rows, so the banded floor is capped at 0.1 * tol.
+        floor_b = min(opt.dc_floor_banded, 0.1 * opt.tol)
+        dc = torch.clamp(1e-8 * torch.sqrt(torch.sqrt(mu)),
+                         min=max(opt.dc_floor, floor_b))
+        dc_c = dc[:, None]
+        # Slack elimination: row i gets D_i = dc (+ 1/sigma_s_i on
+        # inequality rows) and the residual g~ = rg + rd_s / sigma_s.
+        if ns:
+            Dinv = torch.where(consts("eq_mask", v), 1.0 / dc_c,
+                               torch.zeros_like(rg).index_copy(
+                                   1, ineq, 1.0 / (dc_c + 1.0 / sig_s)))
+            gtil = rg + torch.zeros_like(rg).index_copy(1, ineq,
+                                                        rd_s / sig_s)
+        else:
+            Dinv = torch.ones_like(rg) / dc_c
+            gtil = rg
+        # Restoration: zero the Hessian multipliers (the per-node blocks
+        # vanish) and add a proximal identity through the barrier diagonal:
+        # damped Gauss-Newton on the violation.
+        rst = restore.to(v.dtype)[:, None]
+        with record_function("banded.assemble"):
+            blocks_e, blocks_c = kkt.assemble(x, theta, lam * (1.0 - rst),
+                                              sig_x + rst, Dinv)
+        rhs = -(rd_x + c_vjp(Dinv * gtil)[0])
+
+        def c_jvp(dxx):
+            return jvp(lambda xx: c_fn(xx, theta), (x,), (dxx,))[1]
+
+        def solve_refine(blocks, fac, dw, rhs_v, iters):
+            """GMRES with the exact banded matvec ``kkt.kmul`` and the
+            factored solve as right preconditioner: the factorization alone
+            is off in a few border/low-rank directions near a solution, and
+            the ``Dinv ~ 1/dc``-amplified dual recovery needs an f64-grade
+            dx."""
+            dxx = gmres_right(lambda z: kkt.kmul(blocks, dw, z),
+                              lambda r: kkt.solve(blocks, fac, r), rhs_v,
+                              iters)
+            return dxx, Dinv * (c_jvp(dxx) + gtil)
+
+        # Speculative multi-level inertia correction: factor at every dw
+        # level of every instance in one batched call and keep, per
+        # instance, the first positive-definite level.  The LAST level swaps
+        # the exact Lagrangian Hessian for its per-node PSD projection at
+        # dw ~ 0 (modified Newton): the banded M-block must be PD, strictly
+        # stronger than the dense path's K > 0.
+        dw1 = torch.clamp(0.3 * dw_last, min=opt.delta_w_min)
+        dws = torch.stack([torch.zeros_like(dw1)]
+                          + [torch.clamp(m_ * dw1, max=opt.delta_w_max)
+                             for m_ in opt.spec_levels]
+                          + [torch.full_like(dw1, 1e-10)], dim=1)  # (B, L)
+        n_exact = 1 + len(opt.spec_levels)
+
+        def levels(e, c):
+            """(B, L, ...) stack: the exact blocks at the first n_exact
+            levels, the convexified ones at the last; a tensor both variants
+            share broadcasts over the levels."""
+            if e is c:
+                return e[:, None]
+            return torch.cat([e[:, None].expand(B, n_exact, *e.shape[1:]),
+                              c[:, None]], dim=1)
+
+        blocks_lv = _map_blocks(levels, blocks_e, blocks_c)
+        with record_function("banded.factor"):
+            facs = kkt.factor(blocks_lv, dws)
+        lvl = _first_true(facs.ok)
+        any_lvl = facs.ok.any(-1)
+
+        def pick(a):
+            return a[:, 0] if a.shape[1] == 1 else _take(a, lvl)
+
+        fac_sel = _tree_map(pick, facs)
+        blocks_sel = _map_blocks(pick, blocks_lv)
+        dw_spec = _take(dws, lvl)
+        with record_function("banded.gmres"):
+            dx, dlam = solve_refine(blocks_sel, fac_sel, dw_spec, rhs,
+                                    opt.gmres_iters)
+        ok0 = any_lvl & torch.isfinite(dx).all(-1) \
+            & torch.isfinite(dlam).all(-1)
+        # Only exact-level successes feed the dw heuristic.
+        dw_heur = torch.where(lvl < n_exact, dw_spec, 0.0)
+
+        # Escalation of the CONVEXIFIED blocks above the top exact level
+        # for the instances with no usable level (a batched while_loop:
+        # the others keep their values); zero trips when all are served.
+        dw_esc = torch.clamp(dws[:, n_exact - 1], min=1e-8)
+        ok = ok0
+        k = torch.ones(B, dtype=torch.int32, device=v.device)
+        fac_fin = fac_sel
+        while True:
+            esc = (~ok) & (k < 30)
+            if not bool(esc.any()):
+                break
+            dw_next = torch.clamp(torch.clamp(dw_esc * opt.delta_w_up,
+                                              min=opt.delta_w_min),
+                                  max=opt.delta_w_max)
+            with record_function("banded.escalation"):
+                fac = kkt.factor(blocks_c, dw_next)
+                dxn, dln = solve_refine(blocks_c, fac, dw_next, rhs,
+                                        opt.gmres_iters)
+            okn = fac.ok & torch.isfinite(dxn).all(-1) \
+                & torch.isfinite(dln).all(-1)
+            dw_esc = torch.where(esc, dw_next, dw_esc)
+            dx = _where(esc, dxn, dx)
+            dlam = _where(esc, dln, dlam)
+            ok = torch.where(esc, okn, ok)
+            fac_fin = _tree_map(lambda a, b: _where(esc, a, b), fac, fac_fin)
+            k = k + esc.to(torch.int32)
+        esc_taken = ~ok0
+        # dw of the factors in use (the corrector's exact operator) vs the
+        # value fed to the dw_last heuristic.
+        dw_op = torch.where(ok0, dw_spec, dw_esc)
+        dw_used = torch.where(ok0, dw_heur, dw_esc)
+        blocks_fin = _map_blocks(lambda s_, c_: _where(esc_taken, c_, s_),
+                                 blocks_sel, blocks_c)
+
+        ds = (dlam[:, ineq] - rd_s) / sig_s
+        dv = torch.cat([dx, ds], dim=-1)
+        dzl = torch.where(hl, mu_dl - zl - sig_l * dv, 0.0)
+        dzu = torch.where(hu, mu_du - zu + sig_u * dv, 0.0)
+        ok = ok & torch.isfinite(dzl).all(-1) & torch.isfinite(dzu).all(-1)
+        step_dir = (gf * dx).sum(-1) - (mu_dl * dv).sum(-1) \
+            + (mu_du * dv).sum(-1)
+
+        def corrector(rg_soc):
+            """Second-order correction on the selected factors, with the
+            same Krylov treatment as the step."""
+            with record_function("banded.corrector"):
+                dx_c = gmres_right(
+                    lambda z: kkt.kmul(blocks_fin, dw_op, z),
+                    lambda r: kkt.solve(blocks_fin, fac_fin, r),
+                    -c_vjp(Dinv * rg_soc)[0], max(4, opt.gmres_iters // 2))
+                dlam_c = Dinv * (c_jvp(dx_c) + rg_soc)
+            return torch.cat([dx_c, dlam_c[:, ineq] / sig_s], dim=-1), dlam_c
 
         return dv, dlam, dzl, dzu, step_dir, dw_used, ok, corrector
 
@@ -844,7 +1034,12 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
         restore = state.rmode if opt.restoration \
             else torch.zeros_like(state.rmode)
         gf_eff = _where(restore, 0.0, gf)
-        if ev32:
+        if kkt is not None:
+            # Structured (block-banded) path: matrix-free — the dense
+            # Jacobian is never formed; J^T lam comes from one VJP.
+            _, c_vjp = vjp(lambda xx: c_fn(xx, theta), x)
+            Jtlam = c_vjp(lam)[0]
+        elif ev32:
             # f32 assembly for the factorization/GMRES operator; exact
             # f64 J^T lam from one VJP for the KKT error and the step rhs.
             Jc = jac_c(x.float(), theta.float())
@@ -854,10 +1049,15 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
             Jtlam = _mv(Jc.transpose(1, 2), lam)
         e_0 = kkt_error_pre(gf, Jtlam, rg, v, lam, zl, zu, 0.0)
         done_now = _stop_rule(e_0, state.be0)
-        (dv, dlam, dzl, dzu, gf_dv, dw_used, ok,
-         corrector) = compute_step(v, lam, zl, zu, mu, dw_last, theta,
-                                   gf_eff, Jc, rg, restore,
-                                   Jtlam64=Jtlam if ev32 else None)
+        if kkt is not None:
+            step = compute_step_structured(v, lam, zl, zu, mu, dw_last,
+                                           theta, gf_eff, rg, Jtlam, c_vjp,
+                                           restore)
+        else:
+            step = compute_step(v, lam, zl, zu, mu, dw_last, theta, gf_eff,
+                                Jc, rg, restore,
+                                Jtlam64=Jtlam if ev32 else None)
+        dv, dlam, dzl, dzu, gf_dv, dw_used, ok, corrector = step
         # Best-iterate tracking: e_0 is the error of the INCOMING iterate.
         better = e_0 < state.be0
         be0_n = torch.where(better, e_0, state.be0)
@@ -1130,12 +1330,29 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
     solve._body = body
     solve._init_state = init_state
     solve._compute_step = compute_step
+    solve._compute_step_structured = compute_step_structured \
+        if kkt is not None else None
     solve._g = g_fn
     return solve
 
 
-def _tree_where(cond, new, old):
-    """Per-instance select over nested tuples of tensors."""
-    if isinstance(new, tuple):
-        return tuple(_tree_where(cond, a, b) for a, b in zip(new, old))
-    return _where(cond, new, old)
+def _tree_map(fn, *trees):
+    """``fn`` over the tensors of nested (named) tuples of like structure."""
+    first = trees[0]
+    if isinstance(first, tuple):
+        out = [_tree_map(fn, *parts) for parts in zip(*trees)]
+        return type(first)(*out) if hasattr(first, "_fields") \
+            else tuple(out)
+    return fn(*trees)
+
+
+def _map_blocks(fn, *blocks):
+    """``fn`` over the batched tensors of ``ArrowBlocks`` of like layout;
+    the static masks (no instance axis) are kept from the first."""
+    first = blocks[0]
+    return ArrowBlocks(
+        phases=tuple(PhaseBand(*(fn(*t) for t in zip(*pbs)))
+                     for pbs in zip(*(b.phases for b in blocks))),
+        B=fn(*(b.B for b in blocks)), Gw=fn(*(b.Gw for b in blocks)),
+        d_ib=fn(*(b.d_ib for b in blocks)), zmask=first.zmask,
+        wmask=first.wmask)

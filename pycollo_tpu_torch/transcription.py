@@ -757,6 +757,45 @@ class MeshIteration:
             wz = torch.cat([y, u], dim=1).transpose(1, 2)
             return wz, t0, tF, 0.5 * (tF - t0), x_full[:, lay.s_slice]
 
+        def node_jacobians(x_full, p):
+            """Phase p's per-node user functions and their Jacobians at
+            every node of every instance, by one ``vmap`` over the B*N
+            nodes: values Fv (B, N, nf) and the blocks with respect to the
+            node's (y, u) (B, N, nf, nz), t0 and tF (B, N, nf) and s
+            (B, N, nf, ns).  Dtype-polymorphic (follows ``x_full``)."""
+            pl = lay.phases[p]
+            B, N, nz = x_full.shape[0], pl.N, phase_static[p]["nz"]
+            wz, t0, tF, _, s = node_values(x_full, p, pl)
+            args = (wz.reshape(B * N, nz),
+                    t0.repeat_interleave(N)[:, None],
+                    tF.repeat_interleave(N)[:, None],
+                    s.repeat_interleave(N, dim=0),
+                    consts(f"tau{p}", x_full).repeat(B)[:, None])
+            F = phase_F(p, pl)
+            Jw, Jt0, JtF, Js = vmap(jacfwd(F, argnums=(0, 1, 2, 3)))(*args)
+            Fv = vmap(F)(*args)
+            nf = Fv.shape[-1]
+            return (Fv.reshape(B, N, nf), Jw.reshape(B, N, nf, nz),
+                    Jt0.reshape(B, N, nf), JtF.reshape(B, N, nf),
+                    Js.reshape(B, N, nf, ns))
+
+        def endpoints_at(x_ep, xf, ep_t):
+            """Endpoints of one instance's xf (n_full,) with its entries at
+            ``ep_idx`` (ep_t) replaced by x_ep (singleton instance axis: see
+            phase_F)."""
+            return self.endpoints_of(xf.index_copy(0, ep_t, x_ep)[None])
+
+        def endpoint_jacobian(x_full):
+            """(B, nb, len(ep_idx)) Jacobian of the raw endpoint constraints
+            over the endpoint variables: nb is small, and reverse mode
+            through the endpoint extraction is cheap and exact."""
+            ep_t = consts("ep_idx", x_full)
+
+            def b_of(x_ep, xf):
+                return program.endpoint_constraints(
+                    endpoints_at(x_ep, xf, ep_t))[:, 0]
+            return vmap(jacrev(b_of))(x_full[:, ep_t], x_full)
+
         def jac_full(x_full):
             """Dense (B, m_total, n_full) Jacobian of the raw constraints.
 
@@ -765,22 +804,9 @@ class MeshIteration:
             B = x_full.shape[0]
             parts = []
             for p, (pl, st) in enumerate(zip(lay.phases, phase_static)):
-                N, nd, nz = pl.N, pl.num_defect, st["nz"]
-                wz, t0, tF, stretch, s = node_values(x_full, p, pl)
-                args = (wz.reshape(B * N, nz),
-                        t0.repeat_interleave(N)[:, None],
-                        tF.repeat_interleave(N)[:, None],
-                        s.repeat_interleave(N, dim=0),
-                        consts(f"tau{p}", x_full).repeat(B)[:, None])
-                F = phase_F(p, pl)
-                Jw, Jt0, JtF, Js = vmap(jacfwd(F, argnums=(0, 1, 2, 3)))(*args)
-                Fv = vmap(F)(*args)
-                nf = Fv.shape[-1]
-                Jw = Jw.reshape(B, N, nf, nz)
-                Jt0 = Jt0.reshape(B, N, nf)
-                JtF = JtF.reshape(B, N, nf)
-                Js = Js.reshape(B, N, nf, ns)
-                Fv = Fv.reshape(B, N, nf)
+                N, nd = pl.N, pl.num_defect
+                stretch = 0.5 * (x_full[:, pl.t_off + 1] - x_full[:, pl.t_off])
+                Fv, Jw, Jt0, JtF, Js = node_jacobians(x_full, p)
                 I = consts(f"I{p}", x_full)
                 W = consts(f"W{p}", x_full)
                 E = consts(f"E{p}", x_full)
@@ -834,15 +860,10 @@ class MeshIteration:
                         parts.append((row * n_full + s_cols,
                                       -stretch[:, None] * torch.einsum(
                                           "n,bns->bs", W, Js[:, :, iq0 + k, :])))
-            # Endpoint rows: nb is small; reverse-mode through the
-            # endpoint extraction is cheap and exact.
             if lay.nb:
-                def b_of(xf):
-                    return program.endpoint_constraints(
-                        self.endpoints_of(xf[None]))[:, 0]
                 rows = lay.c_endpoint_off + np.arange(lay.nb)
-                parts.append((rows[:, None] * n_full + np.arange(n_full)[None],
-                              vmap(jacrev(b_of))(x_full)))
+                parts.append((rows[:, None] * n_full + ep_idx[None],
+                              endpoint_jacobian(x_full)))
             return scatter_add("jac", parts, x_full, (m_total, n_full))
 
         # derivative_level (reference ``pycollo/settings.py`` derivative
@@ -852,74 +873,85 @@ class MeshIteration:
         # objective curvature.
         exact_hessian = self.settings.derivative_level == 2
 
-        def hess_full(x_full, eta):
-            """Dense (B, n_full, n_full) Hessian of eta . c_raw + w J.
-
-            Dtype-polymorphic (see ``jac_full``)."""
+        def node_hessians(x_full, eta, p):
+            """(B, N, D, D) Hessian blocks of eta . c_raw's share at each
+            node of phase p over the node's [y, u, t0, tF, s], by one
+            ``vmap`` over the B*N nodes.  Dtype-polymorphic (follows
+            ``x_full``)."""
+            pl, st = lay.phases[p], phase_static[p]
             B = x_full.shape[0]
+            N, nd, nz, D = pl.N, pl.num_defect, st["nz"], st["D"]
             eta = eta.to(x_full.dtype)
-            parts = []
-            for p, (pl, st) in enumerate(zip(
-                    lay.phases if exact_hessian else [], phase_static)):
-                N, nd, nz, D = pl.N, pl.num_defect, st["nz"], st["D"]
-                wz, t0, tF, _, s = node_values(x_full, p, pl)
-                I = consts(f"I{p}", x_full)
-                W = consts(f"W{p}", x_full)
-                # Per-node multiplier weights.
-                kappa_f = torch.zeros((B, N, pl.ny), dtype=x_full.dtype,
-                                      device=x_full.device)
-                for kk, k in enumerate(pl.defect_states):
-                    off = pl.c_defect_off + kk * nd
-                    kappa_f[:, :, k] = eta[:, off:off + nd] @ I
-                eta_p = eta[:, pl.c_path_off:pl.c_path_off + pl.npc * N] \
-                    .reshape(B, pl.npc, N).transpose(1, 2)
-                eta_i = eta[:, pl.c_integral_off:pl.c_integral_off + pl.nq]
-                pf = program.phase_functions[p]
+            wz, t0, tF, _, s = node_values(x_full, p, pl)
+            I = consts(f"I{p}", x_full)
+            W = consts(f"W{p}", x_full)
+            # Per-node multiplier weights.
+            kappa_f = torch.zeros((B, N, pl.ny), dtype=x_full.dtype,
+                                  device=x_full.device)
+            for kk, k in enumerate(pl.defect_states):
+                off = pl.c_defect_off + kk * nd
+                kappa_f[:, :, k] = eta[:, off:off + nd] @ I
+            eta_p = eta[:, pl.c_path_off:pl.c_path_off + pl.npc * N] \
+                .reshape(B, pl.npc, N).transpose(1, 2)
+            eta_i = eta[:, pl.c_integral_off:pl.c_integral_off + pl.nq]
+            pf = program.phase_functions[p]
 
-                def phi(vec, kf_j, ep_j, W_j, tau_j, ei, pl=pl, nz=nz, pf=pf):
-                    # singleton node axis: see phase_F; W_j, tau_j are (1,)
-                    yv = vec[:pl.ny, None]
-                    uv = vec[pl.ny:nz, None]
-                    t0v = vec[nz:nz + 1]
-                    tFv = vec[nz + 1:nz + 2]
-                    sv = vec[nz + 2:, None]
-                    stretch_v = 0.5 * (tFv - t0v)
-                    t_j = stretch_v * tau_j + 0.5 * (t0v + tFv)
-                    val = stretch_v * (kf_j @ pf.dynamics(yv, uv, t_j, sv))
-                    if pl.npc:
-                        val = val + ep_j @ pf.path(yv, uv, t_j, sv)
-                    if pl.nq:
-                        val = val - stretch_v * W_j * (
-                            ei @ pf.integrand(yv, uv, t_j, sv))
-                    return val[0]
+            def phi(vec, kf_j, ep_j, W_j, tau_j, ei):
+                # singleton node axis: see phase_F; W_j, tau_j are (1,)
+                yv = vec[:pl.ny, None]
+                uv = vec[pl.ny:nz, None]
+                t0v = vec[nz:nz + 1]
+                tFv = vec[nz + 1:nz + 2]
+                sv = vec[nz + 2:, None]
+                stretch_v = 0.5 * (tFv - t0v)
+                t_j = stretch_v * tau_j + 0.5 * (t0v + tFv)
+                val = stretch_v * (kf_j @ pf.dynamics(yv, uv, t_j, sv))
+                if pl.npc:
+                    val = val + ep_j @ pf.path(yv, uv, t_j, sv)
+                if pl.nq:
+                    val = val - stretch_v * W_j * (
+                        ei @ pf.integrand(yv, uv, t_j, sv))
+                return val[0]
 
-                vecs = torch.cat([wz, t0[:, None, None].expand(B, N, 1),
-                                  tF[:, None, None].expand(B, N, 1),
-                                  s[:, None, :].expand(B, N, ns)], dim=-1)
-                blocks = vmap(hessian(phi))(
-                    vecs.reshape(B * N, D), kappa_f.reshape(B * N, pl.ny),
-                    eta_p.reshape(B * N, pl.npc), W.repeat(B)[:, None],
-                    consts(f"tau{p}", x_full).repeat(B)[:, None],
-                    eta_i.repeat_interleave(N, dim=0))
-                hi = st["hess_idx"]
-                parts.append((hi[:, :, None] * n_full + hi[:, None, :],
-                              blocks.reshape(B, N, D, D)))
+            vecs = torch.cat([wz, t0[:, None, None].expand(B, N, 1),
+                              tF[:, None, None].expand(B, N, 1),
+                              s[:, None, :].expand(B, N, ns)], dim=-1)
+            blocks = vmap(hessian(phi))(
+                vecs.reshape(B * N, D), kappa_f.reshape(B * N, pl.ny),
+                eta_p.reshape(B * N, pl.npc), W.repeat(B)[:, None],
+                consts(f"tau{p}", x_full).repeat(B)[:, None],
+                eta_i.repeat_interleave(N, dim=0))
+            return blocks.reshape(B, N, D, D)
 
-            # Endpoint/objective part over the endpoint-relevant entries.
-            ep_idx_t = consts("ep_idx", x_full)
+        def endpoint_hessian(x_full, eta):
+            """(B, E, E) Hessian of w J (+ eta_b . b at derivative level 2)
+            over the E = len(ep_idx) endpoint variables."""
+            eta = eta.to(x_full.dtype)
+            ep_t = consts("ep_idx", x_full)
 
             def ep_val(x_ep, xf, eta_b):
-                # singleton instance axis: see phase_F
-                ep = self.endpoints_of(
-                    xf.index_copy(0, ep_idx_t, x_ep)[None])
+                ep = endpoints_at(x_ep, xf, ep_t)
                 val = self.w * program.objective(ep)
                 if lay.nb and exact_hessian:
                     val = val + eta_b @ program.endpoint_constraints(ep)
                 return val[0]
 
-            Hep = vmap(hessian(ep_val))(x_full[:, ep_idx_t], x_full,
-                                        eta[:, lay.c_endpoint_off:])
-            parts.append((ep_idx[:, None] * n_full + ep_idx[None, :], Hep))
+            return vmap(hessian(ep_val))(x_full[:, ep_t], x_full,
+                                         eta[:, lay.c_endpoint_off:])
+
+        def hess_full(x_full, eta):
+            """Dense (B, n_full, n_full) Hessian of eta . c_raw + w J.
+
+            Dtype-polymorphic (see ``jac_full``)."""
+            parts = []
+            if exact_hessian:
+                for p, st in enumerate(phase_static):
+                    hi = st["hess_idx"]
+                    parts.append((hi[:, :, None] * n_full + hi[:, None, :],
+                                  node_hessians(x_full, eta, p)))
+            # Endpoint/objective part over the endpoint-relevant entries.
+            parts.append((ep_idx[:, None] * n_full + ep_idx[None, :],
+                          endpoint_hessian(x_full, eta)))
             return scatter_add("hess", parts, x_full, (n_full, n_full))
 
         def jac_c_scaled(xs, theta):
@@ -939,6 +971,13 @@ class MeshIteration:
         self.jac_c_scaled = jac_c_scaled
         self.hess_lag_scaled = hess_lag_scaled
         self._jac_full_fn = jac_full
+        # The per-node and endpoint blocks themselves, for the block-banded
+        # KKT operator (solver/block_kkt.py), which assembles from them.
+        self.ep_idx = ep_idx
+        self.node_jacobians = node_jacobians
+        self.node_hessians = node_hessians
+        self.endpoint_jacobian = endpoint_jacobian
+        self.endpoint_hessian = endpoint_hessian
         self._structured_derivs = dict(jac_c=jac_c_scaled,
                                        hess_lag=hess_lag_scaled)
         return self._structured_derivs
@@ -1077,11 +1116,43 @@ class MeshIteration:
         self.cu_scaled = self.W_c * self.cu
 
     # -- solve ------------------------------------------------------------
+    def build_kkt_operator(self):
+        """Scaled-space banded-arrowhead KKT operator for the IPM.
+
+        Wraps :class:`solver.block_kkt.BlockKKT` (which works on the full,
+        unscaled variable layout) with the scaled-free-space interface the
+        solver's structured step expects, batch-first.  This is the
+        ``linear_solver = "block-banded"`` path replacing the reference's
+        MUMPS sparse factorization (``pycollo/backend.py:1695-1711``).
+        """
+        from .solver.block_kkt import BlockKKT
+        block = BlockKKT(self)
+        it = self
+
+        class _ScaledKKT:
+            def assemble(self, xs, theta, lam, sig_free, dinv_rows):
+                x_full = it.assemble_full(xs, theta)
+                eta = it._consts("W_c", theta) * lam
+                return block.assemble(x_full, eta, sig_free, dinv_rows)
+
+            def factor(self, blocks, dw):
+                return block.factor(blocks, dw)
+
+            def solve(self, blocks, factors, rhs):
+                return block.solve(blocks, factors, rhs)
+
+            def kmul(self, blocks, dw, dx):
+                return block.kmul(blocks, dw, dx)
+
+        return _ScaledKKT()
+
     def build_solver(self, options=None, use_structured=True):
-        """Build the batched interior-point solver of this iteration's NLP
-        (dense condensed-KKT path).  ``use_structured=False`` leaves the
-        derivatives to the solver's generic ``torch.func`` fallback instead
-        of the per-node structured assembly."""
+        """Build the batched interior-point solver of this iteration's NLP:
+        the dense condensed-KKT path, or with ``linear_solver =
+        "block-banded"`` the structured banded-arrowhead path.
+        ``use_structured=False`` leaves the derivatives to the solver's
+        generic ``torch.func`` fallback instead of the per-node structured
+        assembly (and so takes the dense path)."""
         from .solver.ipm import IPMOptions, build_ipm_solver
         if options is None:
             options = IPMOptions(tol=self.settings.nlp_tolerance,
@@ -1090,13 +1161,12 @@ class MeshIteration:
                                  mu_min=self.settings.ipm_mu_min,
                                  line_search=self.settings.ipm_line_search,
                                  inertia=self.settings.ipm_inertia)
-        if self.settings.linear_solver == "block-banded":
-            raise NotImplementedError(
-                "linear_solver='block-banded' is not ported yet "
-                "(ROADMAP A.9); use 'condensed-cholesky'.")
         with self.profiler.span("solver build"):
-            derivatives = dict(self._build_structured_derivatives()) \
-                if use_structured else None
+            derivatives = None
+            if use_structured:
+                derivatives = dict(self._build_structured_derivatives())
+                if self.settings.linear_solver == "block-banded":
+                    derivatives["kkt"] = self.build_kkt_operator()
             self._solver = build_ipm_solver(
                 self.f_scaled, self.c_scaled, self.xs_lb, self.xs_ub,
                 self.cl_scaled, self.cu_scaled, options,

@@ -78,6 +78,21 @@ def test_entry_point_needs_the_cpu_named_without_cuda(problem, monkeypatch,
     assert ok(problem, cpu_call(problem))
 
 
+def test_block_banded_builds_and_needs_the_cpu_named_without_cuda(
+        problem, monkeypatch):
+    """The block-banded path builds its structured solver, and its batched
+    solve keeps the rule: without CUDA it raises unless the CPU is named."""
+    problem.settings.linear_solver = "block-banded"
+    solver = _last(problem).build_solver()
+    assert solver._compute_step_structured is not None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve_batched(problem.backend, batch_size=2)
+    out = solve_batched(problem.backend, batch_size=2, devices=[CPU])
+    assert out.converged.all()
+    assert _last(problem)._solver is solver
+
+
 @pytest.mark.cuda
 def test_default_device_is_the_card(problem):
     if not torch.cuda.is_available():
