@@ -52,7 +52,22 @@ Phases, each of which exits non-zero on failure:
    refined-mesh batch, held against the dense f64 path on the card (at
    least ``BANDED_REFINED_REF - 1`` of the first 8 converged, the JAX
    package's count there from ``scripts/banded_refined_reference.py``, and
-   at least 7 of the first 8 both converge agreeing to 1e-4).
+   at least 7 of the first 8 both converge agreeing to 1e-4);
+7. multi: the multi-device layer (``pycollo_tpu_torch/parallel/``):
+   (a) ``dryrun_multichip`` over four shards of the card (and over the
+   distinct cards where there are several); (b) the slice's batch of 256
+   in two shards on the card (threads, a stream each) through the kernel,
+   at the slice's gates (converged >= 0.99, KKT p99 <= 1e-6), one launch
+   per factorization call of either shard, its agreement with the
+   unsharded slice run and solves/s of one shard and of two printed, and
+   its first ``MULTI_F64`` instances through the f64 path sharded and
+   unsharded, objectives equal to 1e-8; (c) two ranks of a gloo process
+   group on the one card (``run_local_ranks`` starts this script with
+   ``--rank``), 128 instances each through ``solve_batched_global``:
+   both report the global batch and the same converged count, and rank
+   0's objectives equal a single-process solve of its 128 on the card to
+   1e-10; ``measure_multihost_scaling``'s two rates printed; (d) NCCL with
+   one rank per card, rank 0 equal to the single-process solve.
 
 Each phase prints its wall time.  The line before the last is a JSON
 object describing every kernel of the path; the last line is
@@ -236,15 +251,13 @@ def _theta_chunk(it, B, seed):
     return theta
 
 
-def phase_slice():
-    import torch
+def _slice_problem():
+    """Cart-pole on the default mesh, its solver built with
+    ``SLICE_OPTIONS``."""
     sys.path.insert(0, str(ROOT / "examples"))
     from cart_pole_swing_up_torch import build_problem
-    from pycollo_tpu_torch.ops.block_chol import blocked_chol_linv, chol_inv
-    from pycollo_tpu_torch.parallel.batch import solve_batched
     from pycollo_tpu_torch.solver.ipm import IPMOptions
 
-    t0 = time.perf_counter()
     problem = build_problem()
     problem.settings.console_out_progress = False
     problem.settings.nlp_tolerance = 1e-6
@@ -254,6 +267,17 @@ def phase_slice():
           f"unexpected cart-pole size N={it.layout.phases[0].N} "
           f"n={it.n_free}")
     it.build_solver(IPMOptions(**SLICE_OPTIONS))
+    return problem, it
+
+
+def phase_slice():
+    import torch
+    from pycollo_tpu_torch.ops.block_chol import blocked_chol_linv, chol_inv
+    from pycollo_tpu_torch.parallel.batch import solve_batched
+    from pycollo_tpu_torch.solver.ipm import IPMOptions
+
+    t0 = time.perf_counter()
+    problem, it = _slice_problem()
     print(f"slice: cart-pole built (N=31, n=148) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     cuda = [torch.device("cuda")]
@@ -301,7 +325,8 @@ def phase_slice():
           f"only {agree64}/{CPU_CHECK} CPU f64 re-solves agree to 1e-4")
     return dict(launches=launches, calls=calls, conv=conv, iters=iters,
                 kkt99=kkt99, rate=rate, solve_s=res.solve_time,
-                agree64=agree64, agree_mx=agree_mx)
+                agree64=agree64, agree_mx=agree_mx, problem=problem,
+                theta=theta, res=res)
 
 
 #: (name, example module, stored oracle, trajectory tolerance) of the
@@ -755,6 +780,218 @@ def phase_banded(refined):
           f"the banded phase launched chol_inv {chol_inv.launches} times")
 
 
+#: (b): instances of the slice's batch held sharded against unsharded on
+#: the f64 path, whose objectives must agree to MULTI_F64_RTOL
+MULTI_F64 = 64
+MULTI_F64_RTOL = 1e-8
+#: (c), (d): a rank's results against a single-process solve of the same
+#: instances on the same card at the same batch size
+MULTI_RANK_RTOL = 1e-10
+#: timed reps of a rank's solve_batched_global
+MULTI_RANK_REPS = 2
+#: seconds a run of local ranks may take before every rank is killed
+RANK_TIMEOUT = 300
+
+
+def _rank_main(args):
+    """One rank of the multi phase's process groups, started by
+    ``run_local_ranks`` as ``chip_smoke.py --rank BACKEND SCALING RANK
+    WORLD ADDRESS``: the slice's problem on this rank's card, its block
+    of the slice's batch (``np.array_split`` over the ranks) through
+    ``solve_batched_global``, and with SCALING ``scaling``,
+    ``measure_multihost_scaling`` on the same block size."""
+    import torch
+    import torch.distributed as dist
+    from pycollo_tpu_torch.parallel import multihost
+
+    backend, scaling = args[0], args[1] == "scaling"
+    rank, world, address = int(args[2]), int(args[3]), args[4]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    device = multihost.initialize(address, world, rank, backend=backend)
+    try:
+        _, it = _slice_problem()
+        theta = np.array_split(_theta_chunk(it, SLICE_BATCH, 0), world)[rank]
+        out = multihost.solve_batched_global(it, theta_local=theta,
+                                             n_rep=MULTI_RANK_REPS)
+        rates = (multihost.measure_multihost_scaling(
+            it, per_host_batch=len(theta), n_rep=1) if scaling else None)
+        multihost.report(dict(
+            rank=rank, device=str(device), backend=dist.get_backend(),
+            objective=out.local_objective.tolist(),
+            converged=out.local_converged.tolist(),
+            global_converged=out.global_converged,
+            global_batch=out.global_batch, solve_time=out.solve_time,
+            scaling=rates,
+            imported=sorted(m for m in sys.modules if m.split(".")[0]
+                            in ("jax", "jaxlib", "pycollo_tpu"))))
+    finally:
+        multihost.shutdown()
+
+
+def _run_ranks(backend, world, scaling):
+    from pycollo_tpu_torch.parallel.multihost import run_local_ranks
+    t0 = time.perf_counter()
+    outs = run_local_ranks(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--rank", backend,
+         "scaling" if scaling else "-"], world, RANK_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for o in outs:
+        check(o["imported"] == [],
+              f"rank {o['rank']} imported {o['imported']}")
+        check(o["backend"] == backend,
+              f"rank {o['rank']} ran {o['backend']}, not {backend}")
+        check(o["global_batch"] == SLICE_BATCH,
+              f"rank {o['rank']}: global batch {o['global_batch']}")
+        check(o["global_converged"] == outs[0]["global_converged"],
+              f"ranks disagree on the converged count: "
+              f"{[x['global_converged'] for x in outs]}")
+    return outs, wall
+
+
+def _same_solve(label, got_objective, got_converged, ref):
+    """A rank's block against the single-process solve of the same
+    instances on the same card."""
+    got = np.asarray(got_objective)
+    check(got.shape == ref.objective.shape,
+          f"{label}: {got.shape} objectives for {ref.objective.shape}")
+    check(np.array_equal(np.asarray(got_converged), ref.converged),
+          f"{label}: converged flags differ from the single-process solve")
+    rel = float(np.max(np.abs(got - ref.objective) / np.abs(ref.objective)))
+    check(rel <= MULTI_RANK_RTOL,
+          f"{label}: objectives differ from the single-process solve by "
+          f"{rel:.3e} relative")
+    return rel
+
+
+def phase_multi(sl):
+    """The multi-device layer on the card: the dry run, two shards of the
+    slice's batch on the card, two gloo ranks sharing it, NCCL with one
+    rank per card."""
+    import torch
+    from pycollo_tpu_torch.ops.block_chol import blocked_chol_linv, chol_inv
+    from pycollo_tpu_torch.parallel.batch import solve_batched
+    from pycollo_tpu_torch.parallel.dryrun import dryrun_multichip
+    from pycollo_tpu_torch.solver.ipm import IPMOptions
+
+    card = torch.device("cuda", 0)
+    two = [card, card]
+    n_cards = torch.cuda.device_count()
+
+    # (a) the dry run: four shards of the card, then the distinct cards.
+    dry = dryrun_multichip(4, devices=[card] * 4)
+    if n_cards >= 2:
+        dryrun_multichip(n_cards)
+
+    # (b) the slice's batch in two shards on the card.
+    problem, theta, slice_res = sl["problem"], sl["theta"], sl["res"]
+    backend = problem.backend
+    it = backend.mesh_iterations[0]
+    mixed = IPMOptions(**SLICE_OPTIONS)
+    it.build_solver(mixed)
+    warm = solve_batched(backend, devices=two,
+                         theta_batch=_theta_chunk(it, MULTI_F64, 1000))
+    print(f"multi: two-shard warm-up solve {warm.solve_time:.3f} s",
+          flush=True)
+    times = {1: [], 2: []}
+    runs = {}
+    for k in (1, 2, 2, 1):
+        counted = k == 2 and 2 not in runs
+        if counted:
+            chol_inv.launches = 0
+            blocked_chol_linv.calls = 0
+        r = solve_batched(backend, devices=[card] * k, theta_batch=theta)
+        if counted:
+            launches, calls = chol_inv.launches, blocked_chol_linv.calls
+        runs.setdefault(k, r)
+        times[k].append(r.solve_time)
+    res = runs[2]
+    check(launches > 0, "the two-shard solve launched chol_inv 0 times")
+    check(launches == calls,
+          f"two shards: {launches} chol_inv launches for {calls} "
+          f"factorization calls")
+    check(res.x_full.shape == (SLICE_BATCH, it.layout.n_full)
+          and np.isfinite(res.x_full).all(),
+          "two shards: non-finite or misshapen solutions")
+    conv = float(res.converged.mean())
+    kkt99 = float(np.quantile(res.kkt_error, 0.99))
+    agree = _agreeing(res, slice_res)
+    rates = {k: [SLICE_BATCH / t for t in times[k]] for k in times}
+    print(f"multi: two shards of the card, batch {SLICE_BATCH}: converged "
+          f"{conv:.4f}, mean iterations {float(res.iterations.mean()):.2f}, "
+          f"max {int(res.iterations.max())}, KKT p99 {kkt99:.3e}; chol_inv "
+          f"launches {launches} in {calls} factorization calls of both "
+          f"shards (the unsharded slice run: {sl['calls']}); "
+          f"{int(agree.sum())}/{SLICE_BATCH} = "
+          f"{agree.sum() / SLICE_BATCH:.4f} converge with the unsharded "
+          f"slice run and agree to 1e-4", flush=True)
+    print(f"multi: solves/s in turns (one shard, two, two, one): "
+          f"{rates[1][0]:.2f}, {rates[2][0]:.2f}, {rates[2][1]:.2f}, "
+          f"{rates[1][1]:.2f} (solve times {times[1][0]:.3f}, "
+          f"{times[2][0]:.3f}, {times[2][1]:.3f}, {times[1][1]:.3f} s)",
+          flush=True)
+    check(conv >= 0.99, f"two shards: converged fraction {conv} < 0.99")
+    check(kkt99 <= 1e-6, f"two shards: KKT p99 {kkt99:.3e} > 1e-6")
+
+    f64 = IPMOptions(tol=1e-6, max_iter=80)
+    one64 = solve_batched(backend, devices=[card],
+                          theta_batch=theta[:MULTI_F64], options=f64)
+    two64 = solve_batched(backend, devices=two, theta_batch=theta[:MULTI_F64],
+                          options=f64)
+    rel64 = float(np.max(np.abs(two64.objective - one64.objective)
+                         / np.abs(one64.objective)))
+    print(f"multi: f64 path, the first {MULTI_F64} in two shards against "
+          f"unsharded: converged {int(two64.converged.sum())} and "
+          f"{int(one64.converged.sum())}, iterations equal "
+          f"{int((two64.iterations == one64.iterations).sum())}/{MULTI_F64}, "
+          f"objectives max relative difference {rel64:.3e}", flush=True)
+    check(np.array_equal(two64.converged, one64.converged),
+          "f64 path: sharded and unsharded converge on other instances")
+    check(rel64 <= MULTI_F64_RTOL,
+          f"f64 path: sharded objectives differ from unsharded by "
+          f"{rel64:.3e} relative (limit {MULTI_F64_RTOL:g})")
+
+    # (c) two gloo ranks sharing the card, 128 instances each.
+    it.build_solver(mixed)
+    half = SLICE_BATCH // 2
+    ref_half = solve_batched(backend, devices=[card], theta_batch=theta[:half])
+    outs, wall_c = _run_ranks("gloo", 2, scaling=True)
+    rel_c = _same_solve("gloo rank 0", outs[0]["objective"],
+                        outs[0]["converged"], ref_half)
+    sc = outs[0]["scaling"]
+    print(f"multi: two gloo ranks on {outs[0]['device']} and "
+          f"{outs[1]['device']} ({wall_c:.1f} s with start-up): global "
+          f"converged {outs[0]['global_converged']}/{SLICE_BATCH}; solve "
+          f"(the slowest rank's, mean of {MULTI_RANK_REPS}) "
+          f"{outs[0]['solve_time']:.3f} s = "
+          f"{SLICE_BATCH / outs[0]['solve_time']:.2f} solves/s; rank 0 "
+          f"against one process, same {half} instances: relative "
+          f"{rel_c:.3e}; single-process solve of the {half}: "
+          f"{half / ref_half.solve_time:.2f} solves/s", flush=True)
+    print(f"multi: measure_multihost_scaling over the two ranks, {half} "
+          f"copies of the unperturbed instance each (fewer IPM iterations "
+          f"than the slice's batch): single-host "
+          f"{sc['single_host_solves_per_sec']:.2f} solves/s, "
+          f"multi-host {sc['multi_host_solves_per_sec']:.2f} solves/s, "
+          f"efficiency {sc['efficiency']:.4f} (no gate: the ranks share "
+          f"one card and one host)", flush=True)
+
+    # (d) NCCL, one rank per card.
+    outs_d, wall_d = _run_ranks("nccl", n_cards, scaling=False)
+    rows0 = np.array_split(theta, n_cards)[0]
+    ref_d = runs[1] if len(rows0) == SLICE_BATCH else solve_batched(
+        backend, devices=[card], theta_batch=rows0)
+    rel_d = _same_solve("nccl rank 0", outs_d[0]["objective"],
+                        outs_d[0]["converged"], ref_d)
+    print(f"multi: NCCL over {n_cards} rank(s), one per card "
+          f"({wall_d:.1f} s with start-up): global converged "
+          f"{outs_d[0]['global_converged']}/{SLICE_BATCH}, solve "
+          f"{outs_d[0]['solve_time']:.3f} s; rank 0 against one process: "
+          f"relative {rel_d:.3e}", flush=True)
+    return dict(launches=launches, calls=calls, dry=dry, rates=rates)
+
+
 def _timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -764,6 +1001,9 @@ def _timed(name, fn, *args):
 
 def main():
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:2] == ["--rank"]:
+        _rank_main(sys.argv[2:])
+        return
     card = _timed("device", phase_device)
     _timed("build", phase_build)
     kern = _timed("kernel", phase_kernel)
@@ -777,18 +1017,20 @@ def main():
           f"mixed {sl['agree_mx']}/{CPU_CHECK}", flush=True)
     rf = _timed("refine", phase_refine)
     _timed("banded", phase_banded, rf)
+    mu = _timed("multi", phase_multi, sl)
     import torch
     print(f"chol_inv launches per path: slice {sl['launches']} "
           f"({sl['launches'] / sl['calls']:g} per factorization call), "
           f"refined-mesh batch {rf['launches']} "
-          f"({rf['launches'] / rf['calls']:g} per call), banded 0",
-          flush=True)
+          f"({rf['launches'] / rf['calls']:g} per call), banded 0, two "
+          f"shards {mu['launches']} ({mu['launches'] / mu['calls']:g} per "
+          f"call)", flush=True)
     print(json.dumps({"kernels": [{
         "name": "chol_inv",
         "route": "cuda",
         "source": "pycollo_tpu_torch/csrc/chol_linv.cu",
         "replaces": "pycollo_tpu/ops/block_chol.py:63",
-        "launches": sl["launches"] + rf["launches"],
+        "launches": sl["launches"] + rf["launches"] + mu["launches"],
         **kern,
     }]}))
     print(json.dumps({"ok": True, "device": {

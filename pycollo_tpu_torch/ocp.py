@@ -229,11 +229,17 @@ class OptimalControlProblem:
 
         ``overrides`` maps variable references (e.g. entries of
         ``phase.bounds.initial_state_constraints`` keys) to batched arrays.
-        ``devices``: a sequence of one torch device (default the CUDA card;
-        ``[torch.device("cpu")]`` for the CPU).  See
-        :mod:`pycollo_tpu_torch.parallel.batch` for details.  New
-        capability relative to the serial reference (SURVEY.md section 2
-        "absent" rows).
+        ``devices``: a sequence of torch devices (default the CUDA card;
+        ``[torch.device("cpu")]`` for the CPU); with several, the batch is
+        split into contiguous shards in order, one per entry, each solved
+        on its device by a thread of its own (an entry may repeat, e.g.
+        ``[torch.device("cuda:0")] * 2`` for two shards on one card).  The
+        threads share the interpreter lock, so shards are not expected to
+        scale; over several cards run one process per card
+        (:mod:`pycollo_tpu_torch.parallel.multihost`).  See
+        :func:`pycollo_tpu_torch.parallel.batch.solve_theta_batch` for
+        details.  New capability relative to the serial reference
+        (SURVEY.md section 2 "absent" rows).
         """
         if not self._initialised:
             self.initialise()

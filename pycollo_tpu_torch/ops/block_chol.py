@@ -20,6 +20,7 @@ never as a silently wrong factor.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -29,6 +30,10 @@ from . import _build
 #: two blocks share an SM) and its one-row-per-thread phases (256 threads)
 #: are sized for it
 MAX_BLOCK_N = 160
+
+#: guards the read-modify-write of the counters below: shards of a batch
+#: solve call the wrappers from several threads at once
+_count_lock = threading.Lock()
 
 
 def _check_stack(A: torch.Tensor) -> None:
@@ -81,12 +86,13 @@ def chol_inv(A: torch.Tensor, return_diag: bool = False):
         if err != 0:
             raise RuntimeError(f"chol_linv kernel launch failed: CUDA error "
                                f"{err} (B={B}, n={n})")
-        chol_inv.launches += 1
+        with _count_lock:
+            chol_inv.launches += 1
     return (out, diag) if return_diag else out
 
 
-#: kernel launches since the last reset (a plain counter, set to 0 by callers
-#: that want to prove a run went through the kernel)
+#: kernel launches since the last reset (a counter, set to 0 by callers that
+#: want to prove a run went through the kernel; counted under a lock)
 chol_inv.launches = 0
 
 
@@ -140,7 +146,8 @@ def blocked_chol_linv(A: torch.Tensor, block: int | None = None):
         B *= d
     dev = A.device
     Af = A.reshape(B, n, n).to(torch.float32)
-    blocked_chol_linv.calls += 1
+    with _count_lock:
+        blocked_chol_linv.calls += 1
     if n_pad == n == block:
         Linv, diag_L = chol_inv(Af.contiguous(), return_diag=True)
         return diag_L.reshape(*batch, n), Linv.reshape(*batch, n, n)
@@ -191,6 +198,6 @@ def blocked_chol_linv(A: torch.Tensor, block: int | None = None):
             Linv.reshape(*batch, n, n))
 
 
-#: calls since the last reset (a plain counter: with ``chol_inv.launches``
-#: it gives the kernel launches per factorization)
+#: calls since the last reset (a counter, counted under a lock: with
+#: ``chol_inv.launches`` it gives the kernel launches per factorization)
 blocked_chol_linv.calls = 0

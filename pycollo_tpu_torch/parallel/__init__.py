@@ -1,1 +1,2 @@
-"""Batched solves of one OCP over many instances."""
+"""Batched, sharded and multi-process solves of one OCP over many
+instances."""

@@ -47,7 +47,7 @@ import torch
 from torch.func import grad, hessian, jacfwd, jacrev, jvp, vjp, vmap
 from torch.profiler import record_function
 
-from ..utils import DeviceConstants
+from ..utils import FORWARD_AD_LOCK, DeviceConstants
 from .banded import ArrowBlocks, PhaseBand, _mv
 from .krylov import gmres_right
 
@@ -338,10 +338,12 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
 
     def jac_c_ad(x, theta):
         jac = jacfwd(c_one) if n <= 4 * m else jacrev(c_one)
-        return vmap(jac)(x, theta)
+        with FORWARD_AD_LOCK:
+            return vmap(jac)(x, theta)
 
     def hess_lag_ad(x, lam, theta):
-        return vmap(hessian(lagrangian))(x, lam, theta)
+        with FORWARD_AD_LOCK:
+            return vmap(hessian(lagrangian))(x, lam, theta)
 
     grad_f = derivatives.get("grad_f") or grad_f_ad
     jac_c = derivatives.get("jac_c") or jac_c_ad
@@ -728,7 +730,8 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
         rhs = -(rd_x + c_vjp(Dinv * gtil)[0])
 
         def c_jvp(dxx):
-            return jvp(lambda xx: c_fn(xx, theta), (x,), (dxx,))[1]
+            with FORWARD_AD_LOCK:
+                return jvp(lambda xx: c_fn(xx, theta), (x,), (dxx,))[1]
 
         def solve_refine(blocks, fac, dw, rhs_v, iters):
             """GMRES with the exact banded matvec ``kkt.kmul`` and the

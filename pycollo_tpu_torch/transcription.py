@@ -43,7 +43,7 @@ from .bounds import (ProcessedPhaseBounds, ProcessedProblemBounds,
                      process_phase_bounds, process_problem_bounds)
 from .guess import ProcessedPhaseGuess, process_phase_guess
 from .structures import Endpoints, PhaseEndpoints
-from .utils import DeviceConstants, solve_device
+from .utils import FORWARD_AD_LOCK, DeviceConstants, solve_device
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
@@ -772,7 +772,8 @@ class MeshIteration:
                     s.repeat_interleave(N, dim=0),
                     consts(f"tau{p}", x_full).repeat(B)[:, None])
             F = phase_F(p, pl)
-            Jw, Jt0, JtF, Js = vmap(jacfwd(F, argnums=(0, 1, 2, 3)))(*args)
+            with FORWARD_AD_LOCK:
+                Jw, Jt0, JtF, Js = vmap(jacfwd(F, argnums=(0, 1, 2, 3)))(*args)
             Fv = vmap(F)(*args)
             nf = Fv.shape[-1]
             return (Fv.reshape(B, N, nf), Jw.reshape(B, N, nf, nz),
@@ -916,11 +917,12 @@ class MeshIteration:
             vecs = torch.cat([wz, t0[:, None, None].expand(B, N, 1),
                               tF[:, None, None].expand(B, N, 1),
                               s[:, None, :].expand(B, N, ns)], dim=-1)
-            blocks = vmap(hessian(phi))(
-                vecs.reshape(B * N, D), kappa_f.reshape(B * N, pl.ny),
-                eta_p.reshape(B * N, pl.npc), W.repeat(B)[:, None],
-                consts(f"tau{p}", x_full).repeat(B)[:, None],
-                eta_i.repeat_interleave(N, dim=0))
+            with FORWARD_AD_LOCK:
+                blocks = vmap(hessian(phi))(
+                    vecs.reshape(B * N, D), kappa_f.reshape(B * N, pl.ny),
+                    eta_p.reshape(B * N, pl.npc), W.repeat(B)[:, None],
+                    consts(f"tau{p}", x_full).repeat(B)[:, None],
+                    eta_i.repeat_interleave(N, dim=0))
             return blocks.reshape(B, N, D, D)
 
         def endpoint_hessian(x_full, eta):
@@ -936,8 +938,9 @@ class MeshIteration:
                     val = val + eta_b @ program.endpoint_constraints(ep)
                 return val[0]
 
-            return vmap(hessian(ep_val))(x_full[:, ep_t], x_full,
-                                         eta[:, lay.c_endpoint_off:])
+            with FORWARD_AD_LOCK:
+                return vmap(hessian(ep_val))(x_full[:, ep_t], x_full,
+                                             eta[:, lay.c_endpoint_off:])
 
         def hess_full(x_full, eta):
             """Dense (B, n_full, n_full) Hessian of eta . c_raw + w J.

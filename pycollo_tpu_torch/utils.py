@@ -10,6 +10,7 @@ of enumerated-but-unsupported options that raise on use.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Iterable, Optional
 
 import numpy as np
@@ -84,6 +85,14 @@ def solve_device(device) -> torch.device:
             "no CUDA device is available; pass device='cpu' (devices="
             "[torch.device('cpu')] for a batched solve) to solve on the CPU.")
     return device
+
+
+#: torch keeps its forward-mode AD levels in one stack for the whole process,
+#: not one per thread, so two threads inside forward-mode transforms
+#: (``jacfwd``, ``hessian``, ``jvp``) at once break each other's levels
+#: (shards of a batch solve run in threads); every forward-mode transform of
+#: the package runs under this lock, re-entrant because transforms nest
+FORWARD_AD_LOCK = threading.RLock()
 
 
 def console_out(message: str, heading: bool = False) -> None:
