@@ -10,7 +10,8 @@ Phases, each of which exits non-zero on failure:
    prints the card's name and power limit as ``nvidia-smi`` reports them;
 2. build: compiles ``pycollo_tpu_torch/csrc/chol_linv.cu`` with ``nvcc``;
 3. kernel: holds the Cholesky-inverse kernel against its plain PyTorch
-   version on the card at n from 3 to its limit of 160 (``KERNEL_NS``),
+   version on the card at n from 3 to its limit of 160 (``KERNEL_NS``, with
+   the example batches' 93 and 121),
    with NaN isolation, the refusal of n = 161 and the one-launch
    factorization of an equilibrated (1536, 148, 148) stack against f64;
    then times it, its plain version and the library route at the paths'
@@ -39,7 +40,30 @@ Phases, each of which exits non-zero on failure:
    solve once more with the kernel's plain version in its place: the
    kernel's share of answers agreeing with the f64 path may fall short of
    the plain version's by at most ``REFINED_AGREE_MARGIN``;
-6. banded: the block-banded path (``linear_solver="block-banded"``, f64,
+6. examples: (a) the first mesh (``max_mesh_iterations = 1``, dense f64
+   path) of every example family in ``examples_first_mesh_jax.json`` (the
+   JAX package's answers, ``scripts/examples_reference_jax.py``),
+   path-follow's three variants each, through
+   ``problem.solve(device="cuda")``, held to that file: ``n_free`` and
+   ``m_total`` equal, the same convergence flag, the objective to
+   ``EXAMPLES_OBJ_RTOL`` relative (``EXAMPLES_UNCONVERGED_RTOL`` and the
+   same IPM iterations at a finite KKT error where neither package
+   converges); no kernel launches there; (b) B = 256
+   perturbed instances of tumour anti-angiogenesis (condensed size 93: one
+   launch per factorization call) and of the free-flying robot (361: three
+   blocks of 121, three launches per call) through the mixed path and the
+   kernel, again with its plain version in its place, and through the f64
+   path on the card (``EXAMPLES_F64_MAX_ITER`` iterations), whose first 8
+   are re-solved on the CPU in f64 (at least 7 of 8 both converged and
+   agreeing to 1e-4; 6 for the free-flying robot, whose instance 7 has
+   two local solutions, see ``EXAMPLE_BATCHES``); the kernel's converged fraction and its share of
+   answers agreeing with the f64 path may each fall short of the plain
+   version's by at most ``EXAMPLES_AGREE_MARGIN``, and on the first and the
+   last ladder stack the kernel route factored, the kernel and its plain
+   version each factor every matrix in the same blocking: the kernel's
+   max|L^-1 A L^-T - I| is held to the plain version's
+   (``STACK_RESIDUAL_FACTOR``, ``STACK_FINITE_MARGIN``);
+7. banded: the block-banded path (``linear_solver="block-banded"``, f64,
    ``IPMOptions(tol=1e-6, max_iter=80)`` as ``bench.py`` builds it), which
    launches no hand-written kernel: a batch of 64 perturbed default-mesh
    cart-pole instances (at least ``BANDED_CONVERGED_MIN`` converged, KKT
@@ -53,15 +77,16 @@ Phases, each of which exits non-zero on failure:
    least ``BANDED_REFINED_REF - 1`` of the first 8 converged, the JAX
    package's count there from ``scripts/banded_refined_reference.py``, and
    at least 7 of the first 8 both converge agreeing to 1e-4);
-7. multi: the multi-device layer (``pycollo_tpu_torch/parallel/``):
-   (a) ``dryrun_multichip`` over four shards of the card (and over the
-   distinct cards where there are several); (b) the slice's batch of 256
-   in two shards on the card (threads, a stream each) through the kernel,
-   at the slice's gates (converged >= 0.99, KKT p99 <= 1e-6), one launch
-   per factorization call of either shard, its agreement with the
-   unsharded slice run and solves/s of one shard and of two printed, and
-   its first ``MULTI_F64`` instances through the f64 path sharded and
-   unsharded, objectives equal to 1e-8; (c) two ranks of a gloo process
+8. multi: the multi-device layer (``pycollo_tpu_torch/parallel/``):
+   (a) ``dryrun_multichip`` over four entries of the card, which run as one
+   block (and over the distinct cards where there are several); (b) the
+   slice's batch of 256 over two entries of the card, which run as one
+   batch through the kernel, at the slice's gates (converged >= 0.99, KKT
+   p99 <= 1e-6), one launch per factorization call, every instance
+   converging as in the unsharded slice run and agreeing with it to 1e-4,
+   and its first ``MULTI_F64``
+   instances through the f64 path over two entries and one, objectives
+   equal to ``MULTI_F64_RTOL``; (c) two ranks of a gloo process
    group on the one card (``run_local_ranks`` starts this script with
    ``--rank``), 128 instances each through ``solve_batched_global``:
    both report the global batch and the same converged count, and rank
@@ -123,8 +148,9 @@ def phase_build():
 
 #: block sizes held against the plain version: small blocks, the solver's
 #: blocks (37 and 45 of the earlier blocking, 148 of the default mesh in
-#: one block, 157 of the refined mesh), 48, 100 and the kernel's limit
-KERNEL_NS = (3, 8, 15, 37, 45, 48, 100, 148, 157, 160)
+#: one block, 157 of the refined mesh, 93 of tumour anti-angiogenesis, 121
+#: of the free-flying robot), 48, 100 and the kernel's limit
+KERNEL_NS = (3, 8, 15, 37, 45, 48, 93, 100, 121, 148, 157, 160)
 KERNEL_BATCHES = (37, 1536)
 #: the shapes the kernel is timed at: (1536, n, n) for these n
 TIMED_NS = (37, 45, 148, 157)
@@ -544,6 +570,359 @@ def phase_refine():
                 problem=problems["cart-pole"])
 
 
+#: the JAX package's first-mesh answers on the example families
+#: (``scripts/examples_reference_jax.py``, f64 on the CPU)
+EXAMPLES_REFERENCE = ROOT / "tests" / "data" / "examples_first_mesh_jax.json"
+#: first-mesh objective on the card against the JAX package, relative: the
+#: two packages differ by at most 2.3e-13 on the CPU; the rest covers the
+#: rounding of cuSOLVER's and cuBLAS's f64 routines
+EXAMPLES_OBJ_RTOL = 1e-8
+#: first-mesh objective of a family that converges in neither package
+#: (Delta III, path_follow "rate": 200 IPM iterations, stalled) against the
+#: JAX package's, relative: the same stalled iterate, reached through 200
+#: iterations whose steps amplify the rounding differences
+EXAMPLES_UNCONVERGED_RTOL = 1e-6
+EXAMPLES_BATCH = 256
+#: as REFINED_AGREE_MARGIN: the kernel's converged fraction and its share of
+#: answers agreeing with the f64 path may fall this far below its plain
+#: version's on the same batch
+EXAMPLES_AGREE_MARGIN = 0.10
+#: IPM iterations of the batches' f64 path (the examples' own
+#: max_nlp_iterations): from the free-flying robot's perturbed starts it
+#: needs 86-129 iterations in both packages, and some instances converge in
+#: neither (PERF.md, Findings)
+EXAMPLES_F64_MAX_ITER = 200
+#: the kernel against its plain version on a batch's own ladder stacks: its
+#: median and 90th percentile of max|L^-1 A L^-T - I| over the matrices
+#: both factor may be at most this many times the plain version's (the
+#: worst tenth are near-singular in f32, garbage through either route), and
+#: it may factor at most this share of the stack fewer matrices (at the
+#: edge of definiteness the two fail on different matrices, both ways)
+STACK_RESIDUAL_FACTOR = 2.0
+STACK_FINITE_MARGIN = 0.05
+#: matrices of a ladder stack whose smallest eigenvalue is printed (f64)
+STACK_EIG_SAMPLE = 64
+
+
+def _first_mesh(key, ref):
+    """One family's first mesh through ``problem.solve(device="cuda")``,
+    held to the JAX package's answer ``ref``."""
+    import importlib
+
+    import torch
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    example = importlib.import_module(ref["module"] + "_torch")
+    problem = (example.build_problem() if ref["variant"] is None
+               else example.build_problem(ref["variant"]))
+    problem.settings.console_out_progress = False
+    problem.settings.max_mesh_iterations = 1
+    problem.solve(device=dev)
+    wall = time.perf_counter() - t0
+    (r,) = problem.mesh_iterations
+    it = r.iteration
+    spans = it.profiler.spans
+    solve_s = spans["NLP solve"].duration
+    build_s = sum(sp.duration for name, sp in spans.items()
+                  if name != "NLP solve")
+    iters = int(r.ipm_result.iterations)
+    d_obj = abs(r.objective - ref["objective"])
+    rel = d_obj / abs(ref["objective"])
+    print(f"examples: {key}: n_free {it.n_free}, m_total "
+          f"{it.layout.m_total}; {wall:.3f} s on the card: build "
+          f"{build_s:.3f} s, NLP solve {solve_s:.3f} s; IPM iterations "
+          f"{iters} (JAX {ref['iterations']}); converged {r.converged} (JAX "
+          f"{ref['converged']}); KKT {float(r.ipm_result.kkt_error):.3e} "
+          f"(JAX {ref['kkt_error']:.3e}); objective {r.objective!r}, "
+          f"|dobjective| {d_obj:.3e} ({rel:.3e} relative)", flush=True)
+    check(r.ipm_result.x.device.type == "cuda",
+          f"{key}: solved on {r.ipm_result.x.device}")
+    check((it.n_free, it.layout.m_total) == (ref["n_free"], ref["m_total"]),
+          f"{key}: n_free {it.n_free}, m_total {it.layout.m_total}; the JAX "
+          f"package {ref['n_free']}, {ref['m_total']}")
+    check(r.converged == ref["converged"],
+          f"{key}: converged {r.converged}, the JAX package "
+          f"{ref['converged']}")
+    rtol = EXAMPLES_OBJ_RTOL if ref["converged"] \
+        else EXAMPLES_UNCONVERGED_RTOL
+    check(rel <= rtol,
+          f"{key}: objective {r.objective!r} vs the JAX package's "
+          f"{ref['objective']!r}: {rel:.3e} relative (limit {rtol:g})")
+    if not ref["converged"]:
+        kkt = float(r.ipm_result.kkt_error)
+        check(iters == ref["iterations"] and np.isfinite(kkt),
+              f"{key}: stopped after {iters} IPM iterations at KKT "
+              f"{kkt:.3e}, the JAX package after {ref['iterations']}")
+    return dict(wall=wall, build_s=build_s, solve_s=solve_s,
+                iterations=iters, d_obj=d_obj)
+
+
+def _perturb_tumour(it, rng, B):
+    """p(0) and q(0) each times U(0.95, 1.05)."""
+    from pycollo_tpu_torch.parallel.batch import resolve_theta_index
+    theta = np.tile(it.theta_default, (B, 1))
+    for var in (0, 1):
+        theta[:, resolve_theta_index(it, (0, "y", var, 0))] *= \
+            rng.uniform(0.95, 1.05, B)
+    return theta
+
+
+def _perturb_free_flying_robot(it, rng, B):
+    """r_x(0), r_y(0) from U(-10, -9.5), inside the [-10, 10] box;
+    theta(0) = pi/2 + U(-0.1, 0.1)."""
+    from pycollo_tpu_torch.parallel.batch import resolve_theta_index
+    theta = np.tile(it.theta_default, (B, 1))
+    for var in (0, 1):
+        theta[:, resolve_theta_index(it, (0, "y", var, 0))] = \
+            rng.uniform(-10.0, -9.5, B)
+    theta[:, resolve_theta_index(it, (0, "y", 2, 0))] = \
+        np.pi / 2 + rng.uniform(-0.1, 0.1, B)
+    return theta
+
+
+#: (example, perturbation, diagonal blocks of the condensed matrix, least
+#: number of the first CPU_CHECK f64 instances that must converge on the
+#: card and on the CPU and agree to 1e-4).  The free-flying robot is held
+#: at 6, one below CPU_AGREE: its instance 7 has two local solutions
+#: 6.8e-4 apart, and the f64 path reaches one or the other by rounding.
+#: The card, in the batch and alone, and the CPU alone reach 7.55330; the
+#: CPU in its batch of 8 reaches 7.55846 (PERF.md, Findings).
+EXAMPLE_BATCHES = (
+    ("tumour_anti_angiogenesis", _perturb_tumour, 1, CPU_AGREE),
+    ("free_flying_robot", _perturb_free_flying_robot, 3, CPU_AGREE - 1),
+)
+
+
+def _route_line(name, route, r):
+    return (f"examples: {name} batch through the {route}: "
+            f"{len(r.objective) / r.solve_time:.2f} solves/s "
+            f"({r.solve_time:.3f} s); converged "
+            f"{float(r.converged.mean()):.4f}, mean iterations "
+            f"{float(r.iterations.mean()):.2f}, max "
+            f"{int(r.iterations.max())}, KKT p99 "
+            f"{float(np.quantile(r.kkt_error, 0.99)):.3e}")
+
+
+class _LadderStacks:
+    """Stands in for ``block_chol.blocked_chol_linv`` while a solver is
+    built and run: passes every call on, is counted in ``calls`` (where
+    ``blocked_chol_linv`` counts itself) and keeps a copy of the first and
+    the last ladder stack, (B, levels, n, n), that the solve factors."""
+
+    def __init__(self, blocked):
+        self.blocked = blocked
+        self.calls = 0
+        self.stacks = []
+
+    def __call__(self, A, block=None):
+        if A.dim() == 4:
+            self.stacks[1:] = [A.detach().clone()]
+        return self.blocked(A, block)
+
+
+def _stack_residuals(A, plain):
+    """max|X A X^T - I| (f64) of each matrix of the (M, n, n) stack ``A``,
+    X = L^-1 from ``blocked_chol_linv`` through the kernel, or through its
+    plain version in the same blocking."""
+    import torch
+    from pycollo_tpu_torch.ops import block_chol
+    saved = block_chol.chol_inv
+    if plain:
+        block_chol.chol_inv = block_chol.chol_inv_reference
+    try:
+        X = block_chol.blocked_chol_linv(A)[1]
+    finally:
+        block_chol.chol_inv = saved
+    eye = torch.eye(A.shape[-1], dtype=torch.float64, device=A.device)
+    r = torch.empty(A.shape[0], dtype=torch.float64, device=A.device)
+    for c in range(0, A.shape[0], 256):
+        Xc = X[c:c + 256].double()
+        R = Xc @ A[c:c + 256].double() @ Xc.transpose(-1, -2)
+        r[c:c + 256] = (R - eye).abs().amax((-1, -2))
+    return r.cpu().numpy()
+
+
+def _hold_stacks(name, stacks):
+    """The kernel against its plain version on the batch's own ladder
+    stacks (the first and the last the kernel route factored): each
+    factors every matrix, and the kernel's max|L^-1 A L^-T - I| over the
+    matrices finite in both is held to the plain version's."""
+    import torch
+    compared = 0
+    for label, A in zip(("first", "last"), stacks):
+        A = A.reshape(-1, *A.shape[-2:])
+        rk, rp = _stack_residuals(A, False), _stack_residuals(A, True)
+        fk, fp = np.isfinite(rk), np.isfinite(rp)
+        both = fk & fp
+        compared += int(both.sum())
+        qk, qp = (np.quantile(r[both], (0.5, 0.9, 0.99)) if both.any()
+                  else np.full(3, np.nan) for r in (rk, rp))
+        eig = torch.linalg.eigvalsh(A[:STACK_EIG_SAMPLE].double())
+        lo = eig[:, 0].cpu().numpy()
+        print(f"examples: {name} {label} ladder stack {tuple(A.shape)}: "
+              f"smallest eigenvalue of the first {len(lo)}, min / median / "
+              f"max {lo.min():.3e} / {np.median(lo):.3e} / {lo.max():.3e} "
+              f"(largest {float(eig[:, -1].max()):.3e}); factored finite by "
+              f"the kernel {int(fk.sum())}, by the plain version "
+              f"{int(fp.sum())}; max|L^-1 A L^-T - I| over the "
+              f"{int(both.sum())} finite in both, median / p90 / p99 / max: "
+              f"kernel {qk[0]:.3e} / {qk[1]:.3e} / {qk[2]:.3e} / "
+              f"{rk[both].max(initial=0):.3e}, plain {qp[0]:.3e} / "
+              f"{qp[1]:.3e} / {qp[2]:.3e} / {rp[both].max(initial=0):.3e}",
+              flush=True)
+        check(fk.sum() >= fp.sum() - STACK_FINITE_MARGIN * len(rk),
+              f"{name}: the kernel factors {int(fk.sum())} of the {label} "
+              f"ladder stack's {len(rk)} matrices, its plain version "
+              f"{int(fp.sum())}")
+        check(not both.any()
+              or (qk[:2] <= STACK_RESIDUAL_FACTOR * qp[:2]).all(),
+              f"{name}: the kernel's max|L^-1 A L^-T - I| on the {label} "
+              f"ladder stack (median {qk[0]:.3e}, p90 {qk[1]:.3e}) exceeds "
+              f"{STACK_RESIDUAL_FACTOR} x its plain version's ({qp[0]:.3e}, "
+              f"{qp[1]:.3e})")
+    check(compared > 0, f"{name}: no ladder matrix factored by both the "
+          f"kernel and its plain version")
+
+
+def _example_batch(name, perturb, blocks_expected, cpu_agree):
+    """A mixed batch of one family on the card through the kernel, its
+    plain version and the f64 path, the first CPU_CHECK re-solved on the
+    CPU in f64."""
+    import importlib
+
+    import torch
+    from pycollo_tpu_torch.ops import block_chol
+    from pycollo_tpu_torch.ops.block_chol import MAX_BLOCK_N, chol_inv
+    from pycollo_tpu_torch.parallel.batch import solve_batched
+    from pycollo_tpu_torch.solver.ipm import IPMOptions
+
+    cuda = [torch.device("cuda")]
+    problem = importlib.import_module(name + "_torch").build_problem()
+    problem.settings.console_out_progress = False
+    problem.initialise()
+    it = problem.backend.mesh_iterations[0]
+    theta = perturb(it, np.random.default_rng(0), EXAMPLES_BATCH)
+    mixed = IPMOptions(**SLICE_OPTIONS)
+    f64 = IPMOptions(tol=1e-6, max_iter=EXAMPLES_F64_MAX_ITER)
+
+    ladder = _LadderStacks(block_chol.blocked_chol_linv)
+    block_chol.blocked_chol_linv = ladder
+    chol_inv.launches = 0
+    try:
+        res = solve_batched(problem.backend, devices=cuda, theta_batch=theta,
+                            options=mixed)
+    finally:
+        block_chol.blocked_chol_linv = ladder.blocked
+    launches, calls = chol_inv.launches, ladder.calls
+    nv = it._solver.dims["nv"]
+    blocks = -(-nv // MAX_BLOCK_N)
+    print(f"examples: {name} batch: n_free {it.n_free}, condensed size "
+          f"{nv} = {blocks} diagonal block(s) of at most "
+          f"{-(-nv // blocks)}; chol_inv launches {launches} in {calls} "
+          f"factorization calls", flush=True)
+    check(blocks == blocks_expected,
+          f"{name}: {blocks} diagonal blocks, expected {blocks_expected}")
+    check(launches > 0, f"{name}: the mixed batch launched chol_inv 0 times")
+    check(launches == blocks * calls,
+          f"{name}: {launches} chol_inv launches for {calls} factorization "
+          f"calls of {blocks} blocks")
+    check(res.x_full.shape == (EXAMPLES_BATCH, it.layout.n_full)
+          and np.isfinite(res.x_full).all(),
+          f"{name}: non-finite or misshapen solutions")
+    _hold_stacks(name, ladder.stacks)
+    del ladder
+
+    saved = block_chol.chol_inv
+    block_chol.chol_inv = block_chol.chol_inv_reference
+    try:
+        plain = solve_batched(problem.backend, devices=cuda,
+                              theta_batch=theta, options=mixed)
+    finally:
+        block_chol.chol_inv = saved
+    ref = solve_batched(problem.backend, devices=cuda, theta_batch=theta,
+                        options=f64)
+    cpu = solve_batched(problem.backend, devices=[torch.device("cpu")],
+                        theta_batch=theta[:CPU_CHECK], options=f64)
+
+    conv, shares = {}, {}
+    for route, r in (("kernel", res), ("plain version", plain),
+                     ("f64 path", ref)):
+        line = _route_line(name, route, r)
+        if r is not ref:
+            both = r.converged & ref.converged
+            conv[route] = float(r.converged.mean())
+            shares[route] = _agreeing(r, ref).sum() / max(int(both.sum()), 1)
+            line += (f"; of {int(both.sum())} it and the f64 path both "
+                     f"converge, {int(_agreeing(r, ref).sum())} = "
+                     f"{shares[route]:.4f} agree to 1e-4")
+        print(line, flush=True)
+    agree_cpu = _agreeing(cpu, ref)
+    print(f"examples: {name}: the first {CPU_CHECK} re-solved on the CPU in "
+          f"f64 ({cpu.solve_time:.3f} s): converged "
+          f"{int(cpu.converged.sum())} (the card "
+          f"{int(ref.converged[:CPU_CHECK].sum())}), {int(agree_cpu.sum())} "
+          f"both converged and agreeing to 1e-4", flush=True)
+    for i in range(CPU_CHECK):
+        line = (f"examples: {name} instance {i}, f64 path: card objective "
+                f"{float(ref.objective[i])!r} (converged "
+                f"{bool(ref.converged[i])}, {int(ref.iterations[i])} "
+                f"iterations, KKT "
+                f"{ref.kkt_error[i]:.3e}); CPU {float(cpu.objective[i])!r} "
+                f"({bool(cpu.converged[i])}, {int(cpu.iterations[i])}, "
+                f"{cpu.kkt_error[i]:.3e}); relative difference "
+                f"{abs(ref.objective[i] / cpu.objective[i] - 1):.3e}")
+        if cpu.converged[i] and ref.converged[i] and not agree_cpu[i]:
+            # Batch, device or rounding: the instance alone on each.
+            for where, dev in (("card", cuda), ("CPU", [torch.device("cpu")])):
+                alone = solve_batched(problem.backend, devices=dev,
+                                      theta_batch=theta[i:i + 1],
+                                      options=f64)
+                line += (f"; alone on the {where} "
+                         f"{float(alone.objective[0])!r} "
+                         f"({bool(alone.converged[0])}, "
+                         f"{int(alone.iterations[0])})")
+        print(line, flush=True)
+    if cpu_agree < CPU_AGREE:
+        print(f"examples: {name}: {int(agree_cpu.sum())} of {CPU_CHECK} "
+              f"agree; held to {cpu_agree}, below the {CPU_AGREE} of the "
+              f"other batches (EXAMPLE_BATCHES)", flush=True)
+    check(agree_cpu.sum() >= cpu_agree,
+          f"{name}: only {int(agree_cpu.sum())}/{CPU_CHECK} CPU f64 re-solves "
+          f"converge with the card's f64 path and agree with it")
+    for what, got in (("converged fraction", conv),
+                      ("share agreeing with the f64 path", shares)):
+        check(got["kernel"] >= got["plain version"] - EXAMPLES_AGREE_MARGIN,
+              f"{name}: the kernel's {what}, {got['kernel']:.4f}, falls "
+              f"short of the plain version's {got['plain version']:.4f} by "
+              f"more than {EXAMPLES_AGREE_MARGIN}")
+    return dict(launches=launches, calls=calls, blocks=blocks)
+
+
+def phase_examples():
+    """(a) every family's first mesh against the JAX package, no kernel;
+    (b) the two mixed batches through the kernel."""
+    from pycollo_tpu_torch.ops.block_chol import chol_inv
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    reference = json.loads(EXAMPLES_REFERENCE.read_text())
+    print("examples: the first meshes run the dense f64 path, which "
+          "launches no hand-written kernel (cholesky_ex)", flush=True)
+    chol_inv.launches = 0
+    firsts = {key: _first_mesh(key, ref) for key, ref in reference.items()}
+    check(chol_inv.launches == 0,
+          f"the first meshes launched chol_inv {chol_inv.launches} times")
+    worst = max((f["d_obj"] / abs(reference[k]["objective"])
+                 for k, f in firsts.items() if reference[k]["converged"]),
+                default=0.0)
+    print(f"examples: {len(firsts)} first meshes in "
+          f"{sum(f['wall'] for f in firsts.values()):.1f} s: builds "
+          f"{sum(f['build_s'] for f in firsts.values()):.1f} s, NLP solves "
+          f"{sum(f['solve_s'] for f in firsts.values()):.1f} s; "
+          f"largest relative |dobjective| of a converged family "
+          f"{worst:.3e}", flush=True)
+    return {spec[0]: _example_batch(*spec) for spec in EXAMPLE_BATCHES}
+
+
 #: the configuration ``bench.py`` builds the block-banded path with (f64)
 BANDED_OPTIONS = dict(tol=1e-6, max_iter=80)
 BANDED_BATCH = 64
@@ -561,10 +940,11 @@ BANDED_RANGES = ("banded.assemble", "banded.factor", "banded.gmres",
 
 
 #: IPM iterations of the profiled window: processing the trace takes
-#: ~10 s per iteration on the default mesh and ~16 s on the refined one
+#: ~10 s per iteration on the default mesh and ~15 s on the refined one
 #: (a whole batch's, minutes); the counts per iteration barely move (7,497
-#: kernels per iteration over a whole batch, 7,517 over 6 iterations)
-BANDED_PROFILE_ITERS = 3
+#: kernels per iteration over a whole batch, 7,517 over 6 iterations,
+#: 7,548 over 3)
+BANDED_PROFILE_ITERS = 2
 
 
 def _banded_profile(problem, theta):
@@ -780,10 +1160,11 @@ def phase_banded(refined):
           f"the banded phase launched chol_inv {chol_inv.launches} times")
 
 
-#: (b): instances of the slice's batch held sharded against unsharded on
-#: the f64 path, whose objectives must agree to MULTI_F64_RTOL
+#: (b): instances of the slice's batch held over two entries of the card
+#: against one on the f64 path, whose objectives must agree to
+#: MULTI_F64_RTOL (the two entries are one batch: the same arithmetic)
 MULTI_F64 = 64
-MULTI_F64_RTOL = 1e-8
+MULTI_F64_RTOL = 1e-12
 #: (c), (d): a rank's results against a single-process solve of the same
 #: instances on the same card at the same batch size
 MULTI_RANK_RTOL = 1e-10
@@ -866,9 +1247,9 @@ def _same_solve(label, got_objective, got_converged, ref):
 
 
 def phase_multi(sl):
-    """The multi-device layer on the card: the dry run, two shards of the
-    slice's batch on the card, two gloo ranks sharing it, NCCL with one
-    rank per card."""
+    """The multi-device layer on the card: the dry run, the slice's batch
+    over two entries of the card (one batch), two gloo ranks sharing it,
+    NCCL with one rank per card."""
     import torch
     from pycollo_tpu_torch.ops.block_chol import blocked_chol_linv, chol_inv
     from pycollo_tpu_torch.parallel.batch import solve_batched
@@ -879,60 +1260,50 @@ def phase_multi(sl):
     two = [card, card]
     n_cards = torch.cuda.device_count()
 
-    # (a) the dry run: four shards of the card, then the distinct cards.
+    # (a) the dry run: four entries of the card (one block), then the
+    # distinct cards.
     dry = dryrun_multichip(4, devices=[card] * 4)
+    check(dry["blocks"] == ((str(card), dry["batch"]),),
+          f"four entries of the card ran as blocks {dry['blocks']}")
     if n_cards >= 2:
         dryrun_multichip(n_cards)
 
-    # (b) the slice's batch in two shards on the card.
+    # (b) the slice's batch over two entries of the card: one batch.
     problem, theta, slice_res = sl["problem"], sl["theta"], sl["res"]
     backend = problem.backend
     it = backend.mesh_iterations[0]
     mixed = IPMOptions(**SLICE_OPTIONS)
     it.build_solver(mixed)
-    warm = solve_batched(backend, devices=two,
-                         theta_batch=_theta_chunk(it, MULTI_F64, 1000))
-    print(f"multi: two-shard warm-up solve {warm.solve_time:.3f} s",
-          flush=True)
-    times = {1: [], 2: []}
-    runs = {}
-    for k in (1, 2, 2, 1):
-        counted = k == 2 and 2 not in runs
-        if counted:
-            chol_inv.launches = 0
-            blocked_chol_linv.calls = 0
-        r = solve_batched(backend, devices=[card] * k, theta_batch=theta)
-        if counted:
-            launches, calls = chol_inv.launches, blocked_chol_linv.calls
-        runs.setdefault(k, r)
-        times[k].append(r.solve_time)
-    res = runs[2]
-    check(launches > 0, "the two-shard solve launched chol_inv 0 times")
+    chol_inv.launches = 0
+    blocked_chol_linv.calls = 0
+    res = solve_batched(backend, devices=two, theta_batch=theta)
+    launches, calls = chol_inv.launches, blocked_chol_linv.calls
+    check(res.blocks == ((str(card), SLICE_BATCH),),
+          f"two entries of the card ran as blocks {res.blocks}")
+    check(launches > 0, "the two-entry solve launched chol_inv 0 times")
     check(launches == calls,
-          f"two shards: {launches} chol_inv launches for {calls} "
+          f"two entries: {launches} chol_inv launches for {calls} "
           f"factorization calls")
     check(res.x_full.shape == (SLICE_BATCH, it.layout.n_full)
           and np.isfinite(res.x_full).all(),
-          "two shards: non-finite or misshapen solutions")
+          "two entries: non-finite or misshapen solutions")
     conv = float(res.converged.mean())
     kkt99 = float(np.quantile(res.kkt_error, 0.99))
     agree = _agreeing(res, slice_res)
-    rates = {k: [SLICE_BATCH / t for t in times[k]] for k in times}
-    print(f"multi: two shards of the card, batch {SLICE_BATCH}: converged "
+    print(f"multi: two entries of the card, one batch of {SLICE_BATCH} "
+          f"(blocks {res.blocks}) in {res.solve_time:.3f} s: converged "
           f"{conv:.4f}, mean iterations {float(res.iterations.mean()):.2f}, "
           f"max {int(res.iterations.max())}, KKT p99 {kkt99:.3e}; chol_inv "
-          f"launches {launches} in {calls} factorization calls of both "
-          f"shards (the unsharded slice run: {sl['calls']}); "
-          f"{int(agree.sum())}/{SLICE_BATCH} = "
-          f"{agree.sum() / SLICE_BATCH:.4f} converge with the unsharded "
-          f"slice run and agree to 1e-4", flush=True)
-    print(f"multi: solves/s in turns (one shard, two, two, one): "
-          f"{rates[1][0]:.2f}, {rates[2][0]:.2f}, {rates[2][1]:.2f}, "
-          f"{rates[1][1]:.2f} (solve times {times[1][0]:.3f}, "
-          f"{times[2][0]:.3f}, {times[2][1]:.3f}, {times[1][1]:.3f} s)",
-          flush=True)
-    check(conv >= 0.99, f"two shards: converged fraction {conv} < 0.99")
-    check(kkt99 <= 1e-6, f"two shards: KKT p99 {kkt99:.3e} > 1e-6")
+          f"launches {launches} in {calls} factorization calls (the "
+          f"unsharded slice run: {sl['calls']}); {int(agree.sum())}/"
+          f"{SLICE_BATCH} converge with the unsharded slice run and agree "
+          f"to 1e-4", flush=True)
+    check(conv >= 0.99, f"two entries: converged fraction {conv} < 0.99")
+    check(kkt99 <= 1e-6, f"two entries: KKT p99 {kkt99:.3e} > 1e-6")
+    check(np.array_equal(res.converged, slice_res.converged)
+          and agree.sum() == slice_res.converged.sum(),
+          f"two entries: {int(agree.sum())} of the unsharded slice run's "
+          f"{int(slice_res.converged.sum())} converged instances agree")
 
     f64 = IPMOptions(tol=1e-6, max_iter=80)
     one64 = solve_batched(backend, devices=[card],
@@ -941,15 +1312,15 @@ def phase_multi(sl):
                           options=f64)
     rel64 = float(np.max(np.abs(two64.objective - one64.objective)
                          / np.abs(one64.objective)))
-    print(f"multi: f64 path, the first {MULTI_F64} in two shards against "
-          f"unsharded: converged {int(two64.converged.sum())} and "
+    print(f"multi: f64 path, the first {MULTI_F64} over two entries against "
+          f"one: converged {int(two64.converged.sum())} and "
           f"{int(one64.converged.sum())}, iterations equal "
           f"{int((two64.iterations == one64.iterations).sum())}/{MULTI_F64}, "
           f"objectives max relative difference {rel64:.3e}", flush=True)
     check(np.array_equal(two64.converged, one64.converged),
-          "f64 path: sharded and unsharded converge on other instances")
+          "f64 path: two entries and one converge on other instances")
     check(rel64 <= MULTI_F64_RTOL,
-          f"f64 path: sharded objectives differ from unsharded by "
+          f"f64 path: two entries' objectives differ from one's by "
           f"{rel64:.3e} relative (limit {MULTI_F64_RTOL:g})")
 
     # (c) two gloo ranks sharing the card, 128 instances each.
@@ -980,7 +1351,7 @@ def phase_multi(sl):
     # (d) NCCL, one rank per card.
     outs_d, wall_d = _run_ranks("nccl", n_cards, scaling=False)
     rows0 = np.array_split(theta, n_cards)[0]
-    ref_d = runs[1] if len(rows0) == SLICE_BATCH else solve_batched(
+    ref_d = res if len(rows0) == SLICE_BATCH else solve_batched(
         backend, devices=[card], theta_batch=rows0)
     rel_d = _same_solve("nccl rank 0", outs_d[0]["objective"],
                         outs_d[0]["converged"], ref_d)
@@ -989,7 +1360,7 @@ def phase_multi(sl):
           f"{outs_d[0]['global_converged']}/{SLICE_BATCH}, solve "
           f"{outs_d[0]['solve_time']:.3f} s; rank 0 against one process: "
           f"relative {rel_d:.3e}", flush=True)
-    return dict(launches=launches, calls=calls, dry=dry, rates=rates)
+    return dict(launches=launches, calls=calls, dry=dry)
 
 
 def _timed(name, fn, *args):
@@ -1016,21 +1387,26 @@ def main():
           f"re-solves agreeing to 1e-4: f64 {sl['agree64']}/{CPU_CHECK}, "
           f"mixed {sl['agree_mx']}/{CPU_CHECK}", flush=True)
     rf = _timed("refine", phase_refine)
+    ex = _timed("examples", phase_examples)
     _timed("banded", phase_banded, rf)
     mu = _timed("multi", phase_multi, sl)
     import torch
+    per_example = ", ".join(
+        f"{name} {e['launches']} ({e['launches'] / e['calls']:g} per call)"
+        for name, e in ex.items())
     print(f"chol_inv launches per path: slice {sl['launches']} "
           f"({sl['launches'] / sl['calls']:g} per factorization call), "
           f"refined-mesh batch {rf['launches']} "
-          f"({rf['launches'] / rf['calls']:g} per call), banded 0, two "
-          f"shards {mu['launches']} ({mu['launches'] / mu['calls']:g} per "
-          f"call)", flush=True)
+          f"({rf['launches'] / rf['calls']:g} per call), {per_example}, "
+          f"banded 0, two entries of the card {mu['launches']} "
+          f"({mu['launches'] / mu['calls']:g} per call)", flush=True)
     print(json.dumps({"kernels": [{
         "name": "chol_inv",
         "route": "cuda",
         "source": "pycollo_tpu_torch/csrc/chol_linv.cu",
         "replaces": "pycollo_tpu/ops/block_chol.py:63",
-        "launches": sl["launches"] + rf["launches"] + mu["launches"],
+        "launches": (sl["launches"] + rf["launches"] + mu["launches"]
+                     + sum(e["launches"] for e in ex.values())),
         **kern,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -231,11 +231,12 @@ class OptimalControlProblem:
         ``phase.bounds.initial_state_constraints`` keys) to batched arrays.
         ``devices``: a sequence of torch devices (default the CUDA card;
         ``[torch.device("cpu")]`` for the CPU); with several, the batch is
-        split into contiguous shards in order, one per entry, each solved
-        on its device by a thread of its own (an entry may repeat, e.g.
-        ``[torch.device("cuda:0")] * 2`` for two shards on one card).  The
-        threads share the interpreter lock, so shards are not expected to
-        scale; over several cards run one process per card
+        split into contiguous blocks in order, one per distinct device,
+        each solved on its device as one batch (entries that repeat a
+        device, e.g. ``[torch.device("cuda:0")] * 2``, pool into one block
+        on it), distinct devices by a thread each.  The threads share the
+        interpreter lock, so they are not expected to scale; over several
+        cards run one process per card
         (:mod:`pycollo_tpu_torch.parallel.multihost`).  See
         :func:`pycollo_tpu_torch.parallel.batch.solve_theta_batch` for
         details.  New capability relative to the serial reference

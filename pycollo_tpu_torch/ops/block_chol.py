@@ -31,8 +31,9 @@ from . import _build
 #: are sized for it
 MAX_BLOCK_N = 160
 
-#: guards the read-modify-write of the counters below: shards of a batch
-#: solve call the wrappers from several threads at once
+#: guards the read-modify-write of the counters below: the blocks of
+#: distinct devices in a batch solve call the wrappers from several threads
+#: at once
 _count_lock = threading.Lock()
 
 

@@ -5,14 +5,14 @@ The compiled NLP of a mesh iteration is a function of
 states, endpoint targets, fixed times or parameters — any entry of
 ``theta``) solve simultaneously: the batch-first interior-point solver
 advances all of them in one set of batched tensor operations on one
-device.  Given several devices, :func:`solve_batched` splits the batch
-into contiguous shards, one per device, and solves each shard on its own
-device, in its own thread and CUDA stream.  The shards share no data but
-the solver's constant tables, but they do share the interpreter lock and
-``utils.FORWARD_AD_LOCK``, which every derivative evaluation takes: on
-this host-bound solver they take turns at every IPM iteration and are not
-expected to scale, on one card or across cards (``PERF.md``).
-Throughput over several cards goes through
+device.  Given a list of devices, :func:`solve_batched` splits the batch
+into contiguous blocks, one per distinct device, and solves each block as
+one batch on its device.  Entries that repeat a device add to its block:
+``[torch.device("cuda:0")] * 2`` is one batch on the card, run in the
+calling thread, since two threads on one device only take turns on the
+interpreter lock and on ``utils.FORWARD_AD_LOCK`` (``PERF.md``).
+Distinct devices get a thread and a CUDA stream each; they share those
+two locks as well, so throughput over several cards goes through
 :mod:`~pycollo_tpu_torch.parallel.multihost`, one process per card.
 """
 
@@ -21,7 +21,7 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +39,8 @@ class BatchedSolveResult:
     iterations: np.ndarray      # (B,)
     kkt_error: np.ndarray       # (B,)
     solve_time: float = 0.0
+    #: what ran: (device, instances) of each block, in instance order
+    blocks: Tuple[Tuple[str, int], ...] = ()
 
 
 def make_theta_batch(iteration, overrides: Dict) -> np.ndarray:
@@ -132,6 +134,28 @@ def shard_devices(devices) -> List[torch.device]:
     return devices
 
 
+def device_blocks(devices: Sequence[torch.device],
+                  B: int) -> List[Tuple[torch.device, int, int]]:
+    """The contiguous blocks a batch of ``B`` is solved in over the device
+    list ``devices``: ``(device, start, stop)`` per distinct device, in the
+    order in which each first appears.
+
+    Entry i of the list is given the ``torch.tensor_split`` share of the
+    batch (the first ``B % k`` entries one instance more), and a device's
+    block is the sum of its entries' shares, so ``[a, a, b]`` over 9
+    instances gives ``a`` the first 6 and ``b`` the last 3.
+    """
+    k = len(devices)
+    sizes: Dict[torch.device, int] = {}
+    for i, d in enumerate(devices):
+        sizes[d] = sizes.get(d, 0) + B // k + (i < B % k)
+    blocks, start = [], 0
+    for d, n in sizes.items():
+        blocks.append((d, start, start + n))
+        start += n
+    return blocks
+
+
 def solve_theta_batch(iteration, theta_batch: np.ndarray,
                       x0_batch: Optional[np.ndarray] = None, devices=None,
                       options=None) -> BatchedSolveResult:
@@ -140,46 +164,52 @@ def solve_theta_batch(iteration, theta_batch: np.ndarray,
 
     ``devices``: a sequence of torch devices (default: the CUDA card;
     ``[torch.device("cpu")]`` for the CPU, and without a CUDA device the
-    CPU must be named).  With one device the batch is solved there in the
-    calling thread.  With k devices it is split into k contiguous shards
-    in order (``torch.tensor_split``: the first ``B % k`` shards take one
-    instance more), and shard i is solved on ``devices[i]`` by a thread of
-    its own, which copies its inputs to the device and, on a card, runs
-    under ``torch.cuda.device`` and a CUDA stream of its own; the results
-    are concatenated in the original order.  An entry may repeat: each
-    entry is one shard, so ``[torch.device("cpu")] * 4`` runs four shards
-    on the CPU and ``[torch.device("cuda:0")] * 2`` two on one card.  The
-    device types may not mix (``ValueError``).  An exception in a shard is
-    raised here, naming the shard and its device; no shard is solved
-    again elsewhere.
+    CPU must be named).  The batch is split into contiguous blocks, one per
+    distinct device (:func:`device_blocks`): each entry takes its
+    ``torch.tensor_split`` share, and the entries that name one device
+    pool their shares into one block, which that device solves as one
+    batch.  So ``[torch.device("cpu")] * 4`` and
+    ``[torch.device("cuda:0")] * 2`` each solve the whole batch at once,
+    in the calling thread, with no extra stream: the answers are those of
+    the one-device solve, and an exception is raised as it is.  With
+    several distinct devices, block i is
+    solved on its device by a thread of its own, which copies its inputs
+    there and, on a card, runs under ``torch.cuda.device`` and a CUDA
+    stream of its own; an exception in a block is raised here, naming the
+    block and its device, and no block is solved again elsewhere.  The
+    results come back in the original instance order.  The device types
+    may not mix (``ValueError``).
 
     ``options``: build the iteration's solver with these ``IPMOptions``
     (default: reuse the iteration's solver, or build one from the problem
-    settings); it is built once, before any shard starts.
+    settings); it is built once, before any block starts.
 
-    ``solve_time`` runs from the first shard's start (its inputs on its
-    device) to the last shard's synchronisation with its stream.
+    ``solve_time`` runs from the first block's start (its inputs on its
+    device) to the last block's synchronisation with its stream; ``blocks``
+    says what ran.
     """
     devices = shard_devices(devices)
     theta_batch = np.asarray(theta_batch)
     B = theta_batch.shape[0]
-    if x0_batch is None:
-        x0_batch = np.tile(iteration.xs_guess, (B, 1))
+    x0_batch = (np.tile(iteration.xs_guess, (B, 1)) if x0_batch is None
+                else np.asarray(x0_batch))
     if B < len(devices):
         raise ValueError(f"a batch of {B} cannot fill {len(devices)} shards")
     if iteration._solver is None or options is not None:
         iteration.build_solver(options)
 
-    if len(devices) == 1:
+    blocks = device_blocks(devices, B)
+    if len(blocks) == 1:
         parts = [_solve_shard(iteration, devices[0], theta_batch, x0_batch)]
     else:
-        parts = _solve_shards(iteration, devices, theta_batch, x0_batch)
+        parts = _solve_blocks(iteration, blocks, theta_batch, x0_batch)
     cat = {k: np.concatenate([p[k] for p in parts])
            for k in ("x_full", "objective", "converged", "iterations",
                      "kkt_error")}
     return BatchedSolveResult(
         **cat, solve_time=max(p["t_end"] for p in parts)
-        - min(p["t_start"] for p in parts))
+        - min(p["t_start"] for p in parts),
+        blocks=tuple((str(d), b - a) for d, a, b in blocks))
 
 
 def _stream_sync(device: torch.device) -> None:
@@ -188,7 +218,7 @@ def _stream_sync(device: torch.device) -> None:
 
 
 def _solve_shard(iteration, device, theta, x0) -> Dict:
-    """Solve one shard on ``device`` (on its current stream): host arrays of
+    """Solve one block on ``device`` (on its current stream): host arrays of
     the results and the wall-clock times the solve started and ended."""
     kw = dict(dtype=iteration.dtype, device=device)
     theta_t = torch.as_tensor(theta, **kw)
@@ -207,32 +237,31 @@ def _solve_shard(iteration, device, theta, x0) -> Dict:
         t_start=t_start, t_end=t_end)
 
 
-def _solve_shards(iteration, devices: Sequence[torch.device], theta_batch,
-                  x0_batch) -> List[Dict]:
-    """One thread per shard, as ``torch.nn.parallel.parallel_apply`` runs
-    its replicas; a shard's exception is raised after every thread ended."""
-    k = len(devices)
-    thetas = torch.tensor_split(torch.as_tensor(theta_batch), k)
-    x0s = torch.tensor_split(torch.as_tensor(x0_batch), k)
+def _solve_blocks(iteration, blocks, theta_batch, x0_batch) -> List[Dict]:
+    """One thread per block of a distinct device, as
+    ``torch.nn.parallel.parallel_apply`` runs its replicas; a block's
+    exception is raised after every thread ended."""
+    k = len(blocks)
     streams = [torch.cuda.Stream(device=d) if d.type == "cuda" else None
-               for d in devices]
+               for d, _, _ in blocks]
     results: List[Optional[Dict]] = [None] * k
     errors: List[Optional[BaseException]] = [None] * k
 
     def work(i):
+        device, a, b = blocks[i]
         try:
             if streams[i] is None:
-                results[i] = _solve_shard(iteration, devices[i], thetas[i],
-                                          x0s[i])
+                results[i] = _solve_shard(iteration, device, theta_batch[a:b],
+                                          x0_batch[a:b])
                 return
-            with torch.cuda.device(devices[i]), torch.cuda.stream(streams[i]):
-                results[i] = _solve_shard(iteration, devices[i], thetas[i],
-                                          x0s[i])
+            with torch.cuda.device(device), torch.cuda.stream(streams[i]):
+                results[i] = _solve_shard(iteration, device, theta_batch[a:b],
+                                          x0_batch[a:b])
         except Exception as exc:  # re-raised in the calling thread
             errors[i] = exc
 
     threads = [threading.Thread(target=work, args=(i,), daemon=True,
-                                name=f"solve_batched shard {i}")
+                                name=f"solve_batched block {i}")
                for i in range(k)]
     for t in threads:
         t.start()
@@ -240,7 +269,7 @@ def _solve_shards(iteration, devices: Sequence[torch.device], theta_batch,
         t.join()
     for i, exc in enumerate(errors):
         if exc is not None:
-            raise RuntimeError(f"shard {i} of {k} ({len(thetas[i])} "
-                               f"instances) on {devices[i]} failed: "
-                               f"{exc!r}") from exc
+            device, a, b = blocks[i]
+            raise RuntimeError(f"block {i} of {k} ({b - a} instances) on "
+                               f"{device} failed: {exc!r}") from exc
     return results

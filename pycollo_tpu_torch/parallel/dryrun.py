@@ -4,7 +4,9 @@ against the same batch unsharded.
 The counterpart of ``__graft_entry__.dryrun_multichip``: cart-pole swing-up
 on a tiny mesh (2 sections x 4 nodes), B = 2n instances with perturbed
 initial cart positions, every one of which must converge, and the sharded
-solution equal to the unsharded one to 1e-9.  It builds the problem from
+solution equal to the unsharded one to 1e-9.  Entries that repeat a device
+are solved there as one block (``parallel/batch.py``), and the dry run
+reports the distinct devices and blocks that ran.  It builds the problem from
 ``examples/cart_pole_swing_up_torch.py``, so it runs from a checkout.
 """
 
@@ -80,8 +82,10 @@ def dryrun_multichip(n_devices: int, devices=None) -> Dict:
     if not err < MAX_DX:
         raise RuntimeError(f"sharded/unsharded solutions differ by "
                            f"{err:.2e} (limit {MAX_DX:g})")
-    print(f"dryrun_multichip: {n_devices} shards on "
-          f"{[str(d) for d in devices]}, batch {B}, converged {n_conv}/{B}, "
+    blocks = [f"{n} on {d}" for d, n in sharded.blocks]
+    print(f"dryrun_multichip: {n_devices} entries on "
+          f"{[str(d) for d in devices]}, batch {B}: {len(blocks)} distinct "
+          f"device(s), blocks {blocks}; converged {n_conv}/{B}, "
           f"sharded==unsharded (max |dx| = {err:.1e})", flush=True)
     return dict(n_devices=n_devices, batch=B, converged=n_conv, max_dx=err,
-                solve_time=sharded.solve_time)
+                solve_time=sharded.solve_time, blocks=sharded.blocks)

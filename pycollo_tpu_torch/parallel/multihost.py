@@ -1,12 +1,13 @@
 """Multi-process batched solving with ``torch.distributed``.
 
 Batched OCP solves spread across processes (one per card, on one host or
-many; each with its own interpreter, unlike the threaded shards of
-:func:`~pycollo_tpu_torch.parallel.batch.solve_theta_batch`, so this is
-the path that can scale over cards, though that is not yet measured on a
-machine with several): each process solves its own block of the global batch on its own
-device with :func:`~pycollo_tpu_torch.parallel.batch.solve_theta_batch`,
-and the only traffic between processes is a barrier and two reductions
+many; each with its own interpreter, unlike the threads that distinct
+devices get in :func:`~pycollo_tpu_torch.parallel.batch.solve_theta_batch`,
+so this is the path that can scale over cards, though that is not yet
+measured on a machine with several): each process solves its own block
+of the global batch on its own device with
+:func:`~pycollo_tpu_torch.parallel.batch.solve_theta_batch`, and the only
+traffic between processes is a barrier and two reductions
 per solve (the slowest rank's time, the converged count), over NCCL on
 the cards or gloo on the CPU.
 

@@ -3,15 +3,16 @@
 Measures solves/s for the same per-device batch on one device against all
 n devices of a list (weak scaling, the regime of the BASELINE target: at
 least 80 % solves/s efficiency from 1 to N devices), both through
-:func:`~pycollo_tpu_torch.parallel.batch.solve_theta_batch`.  Its shards are
-threads of one process that share the interpreter lock and
+:func:`~pycollo_tpu_torch.parallel.batch.solve_theta_batch`.  Its distinct
+devices are threads of one process that share the interpreter lock and
 ``utils.FORWARD_AD_LOCK``, so on this host-bound solver the efficiency is
 not expected to approach 1.0, even on cards of their own;
 :func:`~pycollo_tpu_torch.parallel.multihost.measure_multihost_scaling`
 measures one process per card, the path that can scale.  A list may
-repeat a device (``[torch.device("cpu")] * 2``); shards that share a
-device share its compute too, so their efficiency says how much the
-sharding costs, not how it scales.
+repeat a device (``[torch.device("cpu")] * 2``); the entries of one device
+are solved there as one batch, so their efficiency says how the batch
+size scales on that device.  ``blocks`` records what the all-devices run
+solved: one (device, instances) block per distinct device.
 """
 
 from __future__ import annotations
@@ -31,6 +32,9 @@ class ScalingResult:
     per_device_batch: int
     single_device_solves_per_sec: float
     all_devices_solves_per_sec: float
+    #: (device, instances) of each block of the all-devices run: one per
+    #: distinct device
+    blocks: tuple = ()
 
     @property
     def efficiency(self) -> float:
@@ -67,12 +71,12 @@ def measure_scaling_efficiency(iteration, per_device_batch: int = 32,
     solve(devices, per_device_batch * n_dev)
 
     def rate(dev_list, B):
-        times = [solve(dev_list, B).solve_time for _ in range(max(n_rep, 1))]
-        return B / float(np.mean(times))
+        runs = [solve(dev_list, B) for _ in range(max(n_rep, 1))]
+        return B / float(np.mean([r.solve_time for r in runs])), runs[-1]
 
-    single = rate(devices[:1], per_device_batch)
-    full = rate(devices, per_device_batch * n_dev)
+    single, _ = rate(devices[:1], per_device_batch)
+    full, last = rate(devices, per_device_batch * n_dev)
     return ScalingResult(n_devices=n_dev,
                          per_device_batch=per_device_batch,
                          single_device_solves_per_sec=single,
-                         all_devices_solves_per_sec=full)
+                         all_devices_solves_per_sec=full, blocks=last.blocks)

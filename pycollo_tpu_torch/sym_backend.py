@@ -62,11 +62,31 @@ def _check_free_symbols(expr, allowed, what: str):
             f"defined in auxiliary data.")
 
 
+def _sqrt(x):
+    """``torch.sqrt`` whose derivatives at exactly 0 are 0, not inf.
+
+    A norm ``sqrt(v . v)`` at ``v = 0`` otherwise has the derivative
+    ``inf * 0 = NaN``, and so does every product with it, such as a drag
+    term ``|v| v`` whose true derivative there is 0.  Delta III's guess puts
+    the relative velocity ``v - omega x r`` at exactly 0 in torch's
+    arithmetic (the JAX package's XLA contracts it into a fused
+    multiply-add that leaves -2.28e-14, with a finite Jacobian).  Off 0 the
+    value and every derivative are ``torch.sqrt``'s, bit for bit; the inner
+    ``where`` keeps the unused branch finite under differentiation."""
+    zero = x == 0
+    return torch.where(zero, torch.zeros_like(x),
+                       torch.sqrt(torch.where(zero, torch.ones_like(x), x)))
+
+
+#: the namespace of the lambdified code: torch, with ``sqrt`` as ``_sqrt``
+_MODULES = [{"sqrt": _sqrt}, "torch"]
+
+
 def _lambdify_vector(exprs: Sequence, args: Sequence,
                      label: str) -> Callable:
     """Lambdify a tuple of scalar expressions into an array-valued fn."""
     exprs = [sympy.sympify(e) for e in exprs]
-    fn = sympy.lambdify(tuple(args), exprs, modules="torch", cse=True)
+    fn = sympy.lambdify(tuple(args), exprs, modules=_MODULES, cse=True)
     return fn
 
 
@@ -187,7 +207,7 @@ class SymbolicProgram:
             b_exprs.append(r)
         self._b_exprs = b_exprs
 
-        self._J_fn = sympy.lambdify(tuple(ep_syms), J, modules="torch",
+        self._J_fn = sympy.lambdify(tuple(ep_syms), J, modules=_MODULES,
                                     cse=True)
         self._b_fn = _lambdify_vector(b_exprs, ep_syms, "endpoint") \
             if b_exprs else None

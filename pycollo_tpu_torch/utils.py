@@ -90,8 +90,9 @@ def solve_device(device) -> torch.device:
 #: torch keeps its forward-mode AD levels in one stack for the whole process,
 #: not one per thread, so two threads inside forward-mode transforms
 #: (``jacfwd``, ``hessian``, ``jvp``) at once break each other's levels
-#: (shards of a batch solve run in threads); every forward-mode transform of
-#: the package runs under this lock, re-entrant because transforms nest
+#: (the blocks of distinct devices in a batch solve run in threads); every
+#: forward-mode transform of the package runs under this lock, re-entrant
+#: because transforms nest
 FORWARD_AD_LOCK = threading.RLock()
 
 

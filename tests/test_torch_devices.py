@@ -138,8 +138,8 @@ def test_default_device_is_the_card(problem):
 
 @pytest.mark.cuda
 def test_two_shards_on_the_card_equal_unsharded(problem):
-    """Two shards of one card (threads, a stream each) give the unsharded
-    f64 answers, and so does the dry run over two shards of the card."""
+    """Two entries of one card (one batch on it) give the unsharded f64
+    answers, and so does the dry run over two entries of the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     card = torch.device("cuda", 0)
