@@ -23,7 +23,15 @@ Phases, each of which exits non-zero on failure:
    ladder stack, and re-solves 8 of them on the CPU through the plain f64 path
    (no kernel, exact Newton steps), whose objectives at least 7 of the 8
    must match to 1e-4; the mixed path on the CPU (the kernel's plain
-   version) is re-solved too, and its agreement printed;
+   version) is re-solved too, and its agreement printed; then the same 256
+   instances through the JAX package's own mixed configuration
+   (``MIXED_REF_OPTIONS``: f64 derivative assembly, GMRES(6) refinement),
+   through the kernel (one launch per factorization call) and again
+   through its plain version, held against the f64 path on the card by
+   tests/integration/test_mixed_precision.py's gates (converged >= 0.99,
+   >= 0.85 of the batch within 1e-4, none off by 1e-2), the kernel's
+   converged fraction and agreement at most ``MIXED_REF_MARGIN`` below the
+   plain version's; its solves/s printed beside the slice's;
 5. refine: ``problem.solve(device="cuda")`` (the ph-adaptive mesh
    refinement loop, every NLP solve on the card in float64) on the
    brachistochrone, cart-pole swing-up and the hypersensitive problem at
@@ -43,7 +51,8 @@ Phases, each of which exits non-zero on failure:
 6. examples: (a) the first mesh (``max_mesh_iterations = 1``, dense f64
    path) of every example family in ``examples_first_mesh_jax.json`` (the
    JAX package's answers, ``scripts/examples_reference_jax.py``),
-   path-follow's three variants each, through
+   path-follow's three variants each (but ``EXAMPLES_SHALLOW``'s, which
+   the ``oracles`` phase runs at a smaller depth), through
    ``problem.solve(device="cuda")``, held to that file: ``n_free`` and
    ``m_total`` equal, the same convergence flag, the objective to
    ``EXAMPLES_OBJ_RTOL`` relative (``EXAMPLES_UNCONVERGED_RTOL`` and the
@@ -63,7 +72,23 @@ Phases, each of which exits non-zero on failure:
    version each factor every matrix in the same blocking: the kernel's
    max|L^-1 A L^-T - I| is held to the plain version's
    (``STACK_RESIDUAL_FACTOR``, ``STACK_FINITE_MARGIN``);
-7. banded: the block-banded path (``linear_solver="block-banded"``, f64,
+7. oracles: ``problem.solve(device="cuda")`` on the brachistochrone and
+   cart-pole under Radau collocation, against the stored Lobatto
+   trajectories (1e-5, interior controls, as the reference's cross-scheme
+   test) and the JAX package's Radau mesh history
+   (``tests/data/oracles_jax.json``, ``scripts/oracles_reference_jax.py``),
+   the brachistochrone also against GPOPS-II's 0.82434 (1e-4) and the
+   reference's solution-structure checks; the four time-dependence problems
+   (``examples/time_dependence_torch.py``: symbolic t, dynamicsymbols, the
+   functional frontend, a state named t) against the analytic -2 and -e and
+   the JAX package's mesh histories; and the two-mesh histories of the
+   rocket and tumour anti-angiogenesis against the JAX package's
+   (``tests/oracle_history.py``: nodes, sizes and verdicts exactly,
+   objectives to 1e-8); then the first mesh of each ``EXAMPLES_SHALLOW``
+   family at the smaller depth stored there (Delta III after 50 IPM
+   iterations: objective to 1e-6, the same iterations, a finite KKT);
+   no kernel launches there;
+8. banded: the block-banded path (``linear_solver="block-banded"``, f64,
    ``IPMOptions(tol=1e-6, max_iter=80)`` as ``bench.py`` builds it), which
    launches no hand-written kernel: a batch of 64 perturbed default-mesh
    cart-pole instances (at least ``BANDED_CONVERGED_MIN`` converged, KKT
@@ -77,7 +102,7 @@ Phases, each of which exits non-zero on failure:
    least ``BANDED_REFINED_REF - 1`` of the first 8 converged, the JAX
    package's count there from ``scripts/banded_refined_reference.py``, and
    at least 7 of the first 8 both converge agreeing to 1e-4);
-8. multi: the multi-device layer (``pycollo_tpu_torch/parallel/``):
+9. multi: the multi-device layer (``pycollo_tpu_torch/parallel/``):
    (a) ``dryrun_multichip`` over four entries of the card, which run as one
    block (and over the distinct cards where there are several); (b) the
    slice's batch of 256 over two entries of the card, which run as one
@@ -266,6 +291,22 @@ CPU_CHECK = 8
 CPU_AGREE = 7
 
 
+#: the JAX package's own mixed configuration
+#: (tests/integration/test_mixed_precision.py:43-46): defaults for the rest,
+#: so the derivatives are assembled in f64 and the step is refined by
+#: GMRES(6) (``dense_refine="auto"`` on the mixed path)
+MIXED_REF_OPTIONS = dict(tol=1e-6, max_iter=80, kkt_precision="mixed",
+                         dc_floor=1e-7, ir_rounds=3)
+#: that test's gates against the f64 path: converged fraction, the share of
+#: the batch within 1e-4 relative, and the largest relative difference
+MIXED_REF_CONVERGED_MIN = 0.99
+MIXED_REF_AGREE_MIN = 0.85
+MIXED_REF_MAX_REL = 1e-2
+#: the kernel's converged fraction and agreement may each fall short of its
+#: plain version's by at most this much (as on the refined mesh)
+MIXED_REF_MARGIN = 0.10
+
+
 def _theta_chunk(it, B, seed):
     """Perturbed initial states (the recipe of ``bench.py``): q1_0 in
     [-0.25, 0.25], q2_0 in [-0.3, 0.3]."""
@@ -352,7 +393,89 @@ def phase_slice():
     return dict(launches=launches, calls=calls, conv=conv, iters=iters,
                 kkt99=kkt99, rate=rate, solve_s=res.solve_time,
                 agree64=agree64, agree_mx=agree_mx, problem=problem,
-                theta=theta, res=res)
+                theta=theta, res=res,
+                mixed_ref=_mixed_reference(problem, theta))
+
+
+def _solve_plain(problem, theta, options):
+    """``solve_batched`` on the card with the kernel's plain version in the
+    kernel's place (the same blocking, f32 arithmetic)."""
+    import torch
+    from pycollo_tpu_torch.ops import block_chol
+    from pycollo_tpu_torch.parallel.batch import solve_batched
+    saved = block_chol.chol_inv
+    block_chol.chol_inv = block_chol.chol_inv_reference
+    try:
+        return solve_batched(problem.backend, devices=[torch.device("cuda")],
+                             theta_batch=theta, options=options)
+    finally:
+        block_chol.chol_inv = saved
+
+
+def _mixed_reference(problem, theta):
+    """The reference's own mixed route (``MIXED_REF_OPTIONS``) on the
+    slice's instances, through the kernel and through its plain version,
+    held against the f64 path on the card by the reference test's gates."""
+    import torch
+    from pycollo_tpu_torch.ops.block_chol import blocked_chol_linv, chol_inv
+    from pycollo_tpu_torch.parallel.batch import solve_batched
+    from pycollo_tpu_torch.solver.ipm import IPMOptions
+
+    cuda = [torch.device("cuda")]
+    B = len(theta)
+    mixed = IPMOptions(**MIXED_REF_OPTIONS)
+    ref = solve_batched(problem.backend, devices=cuda, theta_batch=theta,
+                        options=IPMOptions(tol=1e-6, max_iter=80))
+    print(f"slice: f64 path on the card: converged "
+          f"{float(ref.converged.mean()):.4f} in {ref.solve_time:.3f} s = "
+          f"{B / ref.solve_time:.2f} solves/s", flush=True)
+    chol_inv.launches = 0
+    blocked_chol_linv.calls = 0
+    res = solve_batched(problem.backend, devices=cuda, theta_batch=theta,
+                        options=mixed)
+    launches = chol_inv.launches
+    calls = blocked_chol_linv.calls
+    check(launches > 0, "the mixed-reference route launched chol_inv 0 times")
+    check(launches == calls,
+          f"mixed-reference route: {launches} chol_inv launches for {calls} "
+          f"factorization calls")
+    check(res.x_full.shape == (B, problem.backend.mesh_iterations[0]
+                               .layout.n_full)
+          and np.isfinite(res.x_full).all(),
+          "mixed-reference route: non-finite or misshapen solutions")
+    plain = _solve_plain(problem, theta, mixed)
+    out = {}
+    for name, r in (("kernel", res), ("plain version", plain)):
+        rel = np.abs(r.objective - ref.objective) / np.abs(ref.objective)
+        out[name] = dict(conv=float(r.converged.mean()),
+                         agree=float((rel < 1e-4).mean()),
+                         max_rel=float(rel.max()),
+                         rate=B / r.solve_time)
+        print(f"slice: mixed-reference route ({MIXED_REF_OPTIONS}) through "
+              f"the {name}: batch {B} in {r.solve_time:.3f} s = "
+              f"{out[name]['rate']:.2f} solves/s; converged "
+              f"{out[name]['conv']:.4f}, mean iterations "
+              f"{float(r.iterations.mean()):.2f}, max "
+              f"{int(r.iterations.max())}, KKT p99 "
+              f"{float(np.quantile(r.kkt_error, 0.99)):.3e}; against the "
+              f"f64 path: within 1e-4 {out[name]['agree']:.4f}, max "
+              f"relative {out[name]['max_rel']:.3e}", flush=True)
+    k, p = out["kernel"], out["plain version"]
+    check(k["conv"] >= MIXED_REF_CONVERGED_MIN,
+          f"mixed-reference route: converged {k['conv']} < "
+          f"{MIXED_REF_CONVERGED_MIN}")
+    check(k["agree"] >= MIXED_REF_AGREE_MIN,
+          f"mixed-reference route: {k['agree']} of the batch within 1e-4 of "
+          f"the f64 path, < {MIXED_REF_AGREE_MIN}")
+    check(k["max_rel"] < MIXED_REF_MAX_REL,
+          f"mixed-reference route: max relative difference {k['max_rel']} "
+          f">= {MIXED_REF_MAX_REL}")
+    for key in ("conv", "agree"):
+        check(k[key] >= p[key] - MIXED_REF_MARGIN,
+              f"mixed-reference route: the kernel's {key} {k[key]:.4f} falls "
+              f"short of the plain version's {p[key]:.4f} by more than "
+              f"{MIXED_REF_MARGIN}")
+    return dict(launches=launches, calls=calls, **k)
 
 
 #: (name, example module, stored oracle, trajectory tolerance) of the
@@ -392,9 +515,12 @@ REFINED_CONVERGED_MIN = 37 / 256
 REFINED_AGREE_MARGIN = 0.10
 
 
-def _hold_to_oracle(name, solution, oracle, traj_tol):
+def _hold_to_oracle(name, solution, oracle, traj_tol,
+                    control_interior_only=False):
     """Objective, end times, states and controls of phase 0 against a
-    stored float64 oracle, normalised as test_trajectory_oracle.py does."""
+    stored float64 oracle, normalised as test_trajectory_oracle.py does
+    (for a Radau solve against the stored Lobatto one, the controls at the
+    interior points only: Radau has no collocation node at tF)."""
     stored = np.load(ROOT / "tests" / "data" / f"trajectory_{oracle}.npz")
     obj_ref = float(stored["objective"])
     obj_err = abs(solution.objective - obj_ref) / abs(obj_ref)
@@ -408,6 +534,8 @@ def _hold_to_oracle(name, solution, oracle, traj_tol):
         check(got.shape == ref.shape and np.isfinite(got).all(),
               f"{name}: {label} trajectory {got.shape}, finite "
               f"{np.isfinite(got).all()}")
+        if label == "control" and control_interior_only:
+            got, ref = got[:, :-1], ref[:, :-1]
         scale = np.maximum(np.abs(ref).max(axis=1, keepdims=True), 1.0)
         err = np.abs(got - ref) / scale
         errs[label] = float(err.max())
@@ -476,7 +604,6 @@ def _refined_batch(problem):
     the CPU for the first CPU_CHECK instances) and against the same solve
     with the kernel's plain version."""
     import torch
-    from pycollo_tpu_torch.ops import block_chol
     from pycollo_tpu_torch.ops.block_chol import (MAX_BLOCK_N,
                                                   blocked_chol_linv, chol_inv)
     from pycollo_tpu_torch.parallel.batch import solve_batched
@@ -537,13 +664,7 @@ def _refined_batch(problem):
           f"re-solves agree with the f64 path on the card")
 
     # The same mixed solve with the kernel's plain version in its place.
-    saved = block_chol.chol_inv
-    block_chol.chol_inv = block_chol.chol_inv_reference
-    try:
-        plain = solve_batched(problem.backend, devices=cuda,
-                              theta_batch=theta, options=mixed)
-    finally:
-        block_chol.chol_inv = saved
+    plain = _solve_plain(problem, theta, mixed)
     shares = {}
     for name, r in (("kernel", res), ("plain version", plain)):
         both = r.converged & ref.converged
@@ -576,6 +697,13 @@ EXAMPLES_REFERENCE = ROOT / "tests" / "data" / "examples_first_mesh_jax.json"
 #: first-mesh objective on the card against the JAX package, relative: the
 #: two packages differ by at most 2.3e-13 on the CPU; the rest covers the
 #: rounding of cuSOLVER's and cuBLAS's f64 routines
+#: first meshes that the ``oracles`` phase runs at a smaller depth in place
+#: of the ``examples`` phase: family key in examples_first_mesh_jax.json ->
+#: the oracles_jax.json entry held instead (Delta III's first mesh, which
+#: neither package converges, stopped after 50 of its 200 IPM iterations;
+#: the full depth took 82 s of the run's budget on the card)
+EXAMPLES_SHALLOW = {
+    "delta_iii_launch_vehicle": "delta_iii_launch_vehicle:first_mesh_50"}
 EXAMPLES_OBJ_RTOL = 1e-8
 #: first-mesh objective of a family that converges in neither package
 #: (Delta III, path_follow "rate": 200 IPM iterations, stalled) against the
@@ -832,13 +960,7 @@ def _example_batch(name, perturb, blocks_expected, cpu_agree):
     _hold_stacks(name, ladder.stacks)
     del ladder
 
-    saved = block_chol.chol_inv
-    block_chol.chol_inv = block_chol.chol_inv_reference
-    try:
-        plain = solve_batched(problem.backend, devices=cuda,
-                              theta_batch=theta, options=mixed)
-    finally:
-        block_chol.chol_inv = saved
+    plain = _solve_plain(problem, theta, mixed)
     ref = solve_batched(problem.backend, devices=cuda, theta_batch=theta,
                         options=f64)
     cpu = solve_batched(problem.backend, devices=[torch.device("cpu")],
@@ -908,7 +1030,8 @@ def phase_examples():
     print("examples: the first meshes run the dense f64 path, which "
           "launches no hand-written kernel (cholesky_ex)", flush=True)
     chol_inv.launches = 0
-    firsts = {key: _first_mesh(key, ref) for key, ref in reference.items()}
+    firsts = {key: _first_mesh(key, ref) for key, ref in reference.items()
+              if key not in EXAMPLES_SHALLOW}
     check(chol_inv.launches == 0,
           f"the first meshes launched chol_inv {chol_inv.launches} times")
     worst = max((f["d_obj"] / abs(reference[k]["objective"])
@@ -921,6 +1044,143 @@ def phase_examples():
           f"largest relative |dobjective| of a converged family "
           f"{worst:.3e}", flush=True)
     return {spec[0]: _example_batch(*spec) for spec in EXAMPLE_BATCHES}
+
+
+#: problems of the ``oracles`` phase solved under Radau collocation: name,
+#: example module, stored Lobatto trajectory, and the key of the JAX
+#: package's Radau mesh history in oracles_jax.json
+RADAU_PROBLEMS = (
+    ("brachistochrone", "brachistochrone_torch", "brachistochrone",
+     "brachistochrone:radau"),
+    ("cart-pole", "cart_pole_swing_up_torch", "cart_pole",
+     "cart_pole_swing_up:radau"))
+#: Radau trajectories against the stored Lobatto ones (interior controls),
+#: as tests/integration/test_trajectory_oracle.py's cross-scheme test
+RADAU_TRAJ_TOL = 1e-5
+#: two-mesh histories held to the JAX package's: oracles_jax.json key and
+#: example module
+HISTORY_PROBLEMS = (("rocket_1d", "rocket_1d_torch"),
+                    ("tumour_anti_angiogenesis",
+                     "tumour_anti_angiogenesis_torch"))
+
+
+def _oracle_solve(module, variant=None, **settings):
+    import importlib
+
+    import torch
+    example = importlib.import_module(module)
+    problem = (example.build_problem() if variant is None
+               else example.build_problem(variant))
+    problem.settings.console_out_progress = False
+    for key, value in settings.items():
+        setattr(problem.settings, key, value)
+    t0 = time.perf_counter()
+    solution = problem.solve(device=torch.device("cuda"))
+    wall = time.perf_counter() - t0
+    for r in problem.mesh_iterations:
+        check(r.ipm_result.x.device.type == "cuda",
+              f"{module} {variant}: mesh iteration {r.iteration.number} "
+              f"solved on {r.ipm_result.x.device}")
+    return problem, solution, wall
+
+
+def _hold_history(label, key, problem, solution):
+    import oracle_history
+    ref = oracle_history.load()[key]
+    bad = oracle_history.mismatches(problem, solution, ref)
+
+    def brief(meshes):
+        return [(len(m["section_nodes"][0]), m["n_free"], m["iterations"])
+                for m in meshes]
+
+    print(f"oracles: {label}: mesh history (sections, n_free, IPM "
+          f"iterations) {brief(oracle_history.mesh_history(problem))}, the "
+          f"JAX package's {brief(ref['meshes'])}; objective "
+          f"{solution.objective!r} against {ref['objective']!r}; "
+          f"{'equal' if not bad else 'differs: ' + '; '.join(bad)}",
+          flush=True)
+    check(not bad, f"{label}: mesh history differs from the JAX package's: "
+          f"{bad}")
+
+
+def _brachistochrone_structure(solution):
+    """tests/integration/test_brachistochrone.py's solution checks."""
+    check(len(solution.state) == 1 and solution.state[0].shape[0] == 3,
+          "brachistochrone: solution.state layout")
+    y = solution.state[0]
+    t = solution.time[0]
+    check(abs(t[0]) < 1e-12
+          and abs(t[-1] - solution.objective) <= 1e-10 * solution.objective,
+          f"brachistochrone: time runs {t[0]}..{t[-1]}")
+    check(np.abs(y[:, 0]).max() <= 1e-9
+          and abs(y[0, -1] - 2.0) <= 1e-9 and abs(y[1, -1] - 2.0) <= 1e-9,
+          f"brachistochrone: endpoints {y[:, 0]}, {y[:2, -1]}")
+    v_ref = np.sqrt(2 * 9.81 * 2.0)
+    check(abs(y[2, -1] - v_ref) <= 1e-5 * v_ref,
+          f"brachistochrone: v(tF) {y[2, -1]} against sqrt(2 g y) {v_ref}")
+
+
+def phase_oracles():
+    sys.path.insert(0, str(ROOT / "examples"))
+    sys.path.insert(0, str(ROOT / "tests"))
+    import oracle_history
+    from pycollo_tpu_torch.ops.block_chol import chol_inv
+    from time_dependence_torch import OBJECTIVES, VARIANTS
+
+    chol_inv.launches = 0
+    for name, module, oracle, key in RADAU_PROBLEMS:
+        problem, solution, wall = _oracle_solve(module,
+                                                quadrature_method="radau")
+        check(problem.mesh_tolerance_met, f"{name} (Radau): mesh tolerance "
+              f"not met")
+        obj_err, errs = _hold_to_oracle(f"{name} (Radau)", solution, oracle,
+                                        RADAU_TRAJ_TOL,
+                                        control_interior_only=True)
+        print(f"oracles: {name} under Radau: {len(problem.mesh_iterations)} "
+              f"mesh iterations in {wall:.3f} s; objective "
+              f"{solution.objective!r} (stored Lobatto relative "
+              f"{obj_err:.3e}); max trajectory error state "
+              f"{errs['state']:.3e}, interior control {errs['control']:.3e}",
+              flush=True)
+        _hold_history(f"{name} (Radau)", key, problem, solution)
+        if name == "brachistochrone":
+            gp = abs(solution.objective - GPOPS_BRACHISTOCHRONE) \
+                / GPOPS_BRACHISTOCHRONE
+            check(gp <= 1e-4, f"brachistochrone (Radau) objective "
+                  f"{solution.objective} vs GPOPS-II 0.82434: {gp:.3e}")
+            _brachistochrone_structure(solution)
+
+    # Time-dependent dynamics: symbolic t, dynamicsymbols, the functional
+    # frontend, a state named t (tests/unit/test_time_dependence.py).
+    for variant in VARIANTS:
+        problem, solution, wall = _oracle_solve("time_dependence_torch",
+                                                variant)
+        err = abs(solution.objective - OBJECTIVES[variant])
+        tol = 1e-3 if variant == "state_named_t" else 1e-4
+        print(f"oracles: time dependence ({variant}): objective "
+              f"{solution.objective!r}, analytic {OBJECTIVES[variant]!r} "
+              f"(difference {err:.3e}) in {wall:.3f} s", flush=True)
+        check(err < tol, f"time dependence ({variant}): objective "
+              f"{solution.objective} against {OBJECTIVES[variant]}")
+        _hold_history(f"time dependence ({variant})",
+                      f"time_dependence:{variant}", problem, solution)
+
+    for key, module in HISTORY_PROBLEMS:
+        problem, solution, wall = _oracle_solve(module,
+                                                max_mesh_iterations=2)
+        print(f"oracles: {key}: two mesh iterations in {wall:.3f} s",
+              flush=True)
+        _hold_history(key, key, problem, solution)
+
+    for family, key in EXAMPLES_SHALLOW.items():
+        settings = oracle_history.load()[key]["settings"]
+        problem, solution, wall = _oracle_solve(family + "_torch", **settings)
+        r = problem.mesh_iterations[0]
+        print(f"oracles: {key} ({settings}): {wall:.3f} s on the card, KKT "
+              f"{float(r.ipm_result.kkt_error):.3e}", flush=True)
+        _hold_history(key, key, problem, solution)
+    check(chol_inv.launches == 0,
+          f"the oracles phase launched chol_inv {chol_inv.launches} times")
 
 
 #: the configuration ``bench.py`` builds the block-banded path with (f64)
@@ -1386,26 +1646,40 @@ def main():
           f"{sl['calls']} factorization calls; CPU "
           f"re-solves agreeing to 1e-4: f64 {sl['agree64']}/{CPU_CHECK}, "
           f"mixed {sl['agree_mx']}/{CPU_CHECK}", flush=True)
+    mr = sl["mixed_ref"]
+    print(f"slice: {card}: the reference's mixed route (f64 assembly, "
+          f"GMRES(6)) through the kernel: {mr['rate']:.2f} solves/s beside "
+          f"the slice's {sl['rate']:.2f}; converged {mr['conv']:.4f}, "
+          f"within 1e-4 of the f64 path {mr['agree']:.4f}, max relative "
+          f"{mr['max_rel']:.3e}; chol_inv launches {mr['launches']} in "
+          f"{mr['calls']} factorization calls", flush=True)
     rf = _timed("refine", phase_refine)
     ex = _timed("examples", phase_examples)
+    _timed("oracles", phase_oracles)
     _timed("banded", phase_banded, rf)
     mu = _timed("multi", phase_multi, sl)
+    imported = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "pycollo_tpu"))
+    check(imported == [], f"the run imported {imported}")
     import torch
     per_example = ", ".join(
         f"{name} {e['launches']} ({e['launches'] / e['calls']:g} per call)"
         for name, e in ex.items())
     print(f"chol_inv launches per path: slice {sl['launches']} "
           f"({sl['launches'] / sl['calls']:g} per factorization call), "
+          f"mixed-reference route {mr['launches']} "
+          f"({mr['launches'] / mr['calls']:g} per call), "
           f"refined-mesh batch {rf['launches']} "
           f"({rf['launches'] / rf['calls']:g} per call), {per_example}, "
-          f"banded 0, two entries of the card {mu['launches']} "
+          f"oracles 0, banded 0, two entries of the card {mu['launches']} "
           f"({mu['launches'] / mu['calls']:g} per call)", flush=True)
     print(json.dumps({"kernels": [{
         "name": "chol_inv",
         "route": "cuda",
         "source": "pycollo_tpu_torch/csrc/chol_linv.cu",
         "replaces": "pycollo_tpu/ops/block_chol.py:63",
-        "launches": (sl["launches"] + rf["launches"] + mu["launches"]
+        "launches": (sl["launches"] + mr["launches"] + rf["launches"]
+                     + mu["launches"]
                      + sum(e["launches"] for e in ex.values())),
         **kern,
     }]}))

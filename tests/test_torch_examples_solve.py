@@ -9,8 +9,9 @@ converged solve must reach the stored objective to 1e-8 relative (the two
 packages differ by at most 2.3e-13 here).  Where the JAX package does not
 converge (Delta III, path_follow "rate": 200 IPM iterations, stalled) the
 port must stop after the same iterations at a finite KKT error, with the
-stored objective to 1e-6 relative.  The
-file is written by ``scripts/examples_reference_jax.py``; two cheap
+stored objective to 1e-6 relative; Delta III is also held after the 50 IPM
+iterations ``chip_smoke.py`` runs it to (``tests/data/oracles_jax.json``).
+The file is written by ``scripts/examples_reference_jax.py``; two cheap
 families are initialised through the JAX package again so that stale data
 fails.  Tumour, rocket and the implicit cart-pole (11-27 s each) run in
 the default suite, the others are ``slow``.
@@ -90,3 +91,18 @@ def test_reference_data_is_current(key):
     it = problem.backend.mesh_iterations[0]
     assert type(it).__module__ == "pycollo_tpu.transcription"
     assert (it.n_free, it.layout.m_total) == (ref["n_free"], ref["m_total"])
+
+
+@pytest.mark.slow
+def test_delta_iii_first_mesh_at_smaller_depth():
+    """Delta III's first mesh stopped after 50 IPM iterations, the depth
+    ``chip_smoke.py`` runs it at, against the JAX package's iterate there
+    (``tests/data/oracles_jax.json``, ``tests/oracle_history.py``)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import oracle_history
+    ref = oracle_history.load()["delta_iii_launch_vehicle:first_mesh_50"]
+    problem = _build("delta_iii_launch_vehicle_torch", None)
+    for name, value in ref["settings"].items():
+        setattr(problem.settings, name, value)
+    solution = problem.solve(device="cpu")
+    assert oracle_history.mismatches(problem, solution, ref) == []
