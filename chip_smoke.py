@@ -1197,6 +1197,10 @@ BANDED_REFINED_REF = 8
 #: profiler ranges of the structured step (solver/ipm.py)
 BANDED_RANGES = ("banded.assemble", "banded.factor", "banded.gmres",
                  "banded.corrector", "banded.escalation")
+#: prefixes of every span of the program (pycollo_tpu_torch/profiling.py):
+#: under the profiler each is a range on the host and on the device, and
+#: none is a device operation
+PROGRAM_RANGES = ("banded.", "ipm.", "batch.")
 
 
 #: IPM iterations of the profiled window: processing the trace takes
@@ -1232,7 +1236,8 @@ def _banded_profile(problem, theta):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    cuda_ev = [e for e in ka if e.device_type == DeviceType.CUDA]
+    cuda_ev = [e for e in ka if e.device_type == DeviceType.CUDA
+               and not e.key.startswith(PROGRAM_RANGES)]
     n_it = int(res.iterations.max())
     kernels = sum(e.count for e in cuda_ev)
     api = sum(e.count for e in ka
@@ -1247,11 +1252,9 @@ def _banded_profile(problem, theta):
             else:
                 host = e.cpu_time_total / 1e6
             ranges[e.key] = (host, dev)
-    top = sorted((e for e in cuda_ev if e.key not in BANDED_RANGES),
-                 key=dev_us, reverse=True)[:8]
+    top = sorted(cuda_ev, key=dev_us, reverse=True)[:8]
     return dict(kernels=kernels, api=api, n_it=n_it, total_s=total_s,
-                busy_s=sum(dev_us(e) for e in cuda_ev
-                           if e.key not in BANDED_RANGES) / 1e6,
+                busy_s=sum(dev_us(e) for e in cuda_ev) / 1e6,
                 wall_s=res.solve_time, ranges=ranges,
                 top=[(e.key, e.count, dev_us(e) / 1e6) for e in top])
 

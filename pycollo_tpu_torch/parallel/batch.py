@@ -26,6 +26,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..profiling import span
 from ..utils import solve_device
 
 
@@ -219,22 +220,25 @@ def _stream_sync(device: torch.device) -> None:
 
 def _solve_shard(iteration, device, theta, x0) -> Dict:
     """Solve one block on ``device`` (on its current stream): host arrays of
-    the results and the wall-clock times the solve started and ended."""
+    the results and the wall-clock times the solve started and ended
+    (spans ``batch.inputs``, ``ipm.solve`` and ``batch.outputs``)."""
     kw = dict(dtype=iteration.dtype, device=device)
-    theta_t = torch.as_tensor(theta, **kw)
-    x0_t = torch.as_tensor(x0, **kw)
+    with span("batch.inputs"):
+        theta_t = torch.as_tensor(theta, **kw)
+        x0_t = torch.as_tensor(x0, **kw)
     _stream_sync(device)
     t_start = time.perf_counter()
     res = iteration._solver(x0_t, theta_t)
     _stream_sync(device)
     t_end = time.perf_counter()
-    return dict(
-        x_full=iteration.assemble_full(res.x, theta_t).cpu().numpy(),
-        objective=res.f.cpu().numpy() / iteration.w,
-        converged=res.converged.cpu().numpy(),
-        iterations=res.iterations.cpu().numpy(),
-        kkt_error=res.kkt_error.cpu().numpy(),
-        t_start=t_start, t_end=t_end)
+    with span("batch.outputs"):
+        return dict(
+            x_full=iteration.assemble_full(res.x, theta_t).cpu().numpy(),
+            objective=res.f.cpu().numpy() / iteration.w,
+            converged=res.converged.cpu().numpy(),
+            iterations=res.iterations.cpu().numpy(),
+            kkt_error=res.kkt_error.cpu().numpy(),
+            t_start=t_start, t_end=t_end)
 
 
 def _solve_blocks(iteration, blocks, theta_batch, x0_batch) -> List[Dict]:

@@ -45,8 +45,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 from torch.func import grad, hessian, jacfwd, jacrev, jvp, vjp, vmap
-from torch.profiler import record_function
 
+from ..profiling import count, span
 from ..utils import FORWARD_AD_LOCK, DeviceConstants
 from .banded import ArrowBlocks, PhaseBand, _mv
 from .krylov import gmres_right
@@ -220,6 +220,23 @@ def _where(cond, a, b):
     nd = max(a.dim(), b.dim() if torch.is_tensor(b) else 0)
     return torch.where(cond.reshape(cond.shape + (1,) * (nd - cond.dim())),
                        a, b)
+
+
+def _any(mask) -> bool:
+    """``bool(mask.any())``: a host read of a device value, the IPM loop's
+    one kind of host synchronisation (span ``ipm.wait``, counter
+    ``ipm.syncs``)."""
+    with span("ipm.wait"):
+        count("ipm.syncs")
+        return bool(mask.any())
+
+
+def _count_escalation(esc):
+    """Count one escalation trip of the (B,) mask ``esc``: a factorization
+    of the whole batch for the rows that escalate."""
+    count("ipm.escalation_trips")
+    count("ipm.escalation_rows_factored", esc.shape[0])
+    count("ipm.escalation_rows", esc)
 
 
 def _first_true(mask):
@@ -489,16 +506,17 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
 
             K' = D K D with D = diag(K)^-1/2 bounds factor growth by the
             scaled condition number (the role pivoting plays in MUMPS)."""
-            dK = torch.sqrt(torch.clamp(
-                torch.diagonal(Kmat, dim1=-2, dim2=-1), min=1e-30))
-            Ks = Kmat / dK[..., :, None] / dK[..., None, :]
-            factors_ = spd_factor(Ks)
-            # Indefiniteness: NaN or sub-floor pivots (a healthy pivot of
-            # the equilibrated matrix is O(1)).
-            diag = spd_diag(factors_)
-            lvl_ok = torch.isfinite(diag).all(-1) \
-                & ~(diag < piv_floor).any(-1)
-            return factors_, dK, lvl_ok
+            with span("ipm.factor"):
+                dK = torch.sqrt(torch.clamp(
+                    torch.diagonal(Kmat, dim1=-2, dim2=-1), min=1e-30))
+                Ks = Kmat / dK[..., :, None] / dK[..., None, :]
+                factors_ = spd_factor(Ks)
+                # Indefiniteness: NaN or sub-floor pivots (a healthy pivot
+                # of the equilibrated matrix is O(1)).
+                diag = spd_diag(factors_)
+                lvl_ok = torch.isfinite(diag).all(-1) \
+                    & ~(diag < piv_floor).any(-1)
+                return factors_, dK, lvl_ok
 
         def ksolve(factors_, dK64, rhs):
             z = spd_solve(factors_, (rhs / dK64).to(fac_dtype or v.dtype))
@@ -531,25 +549,28 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
 
         def solve_with(factors_, dK64, dw):
             """KKT solve + refinement on given factors."""
-            if use_gmres_dense:
-                dv, dlam = gmres_solve(factors_, dK64, dw,
-                                       torch.cat([-rd, -rg], dim=-1),
-                                       opt.dense_gmres_iters)
-            else:
-                dv = ksolve(factors_, dK64, -(rd + _mv(Jt, rg / dc_c)))
-                dlam = (_mv(J, dv) + rg) / dc_c
-                # Iterative refinement on the regularized KKT residual
-                # (always f64).
-                for _ in range(opt.ir_rounds):
-                    res1 = -rd - (_mv(W0, dv) + dw[:, None] * dv
-                                  + _mv(Jt, dlam))
-                    res2 = -rg - (_mv(J, dv) - dc_c * dlam)
-                    ev = ksolve(factors_, dK64, res1 + _mv(Jt, res2 / dc_c))
-                    dv = dv + ev
-                    dlam = dlam + (_mv(J, ev) - res2) / dc_c
-            solved_ok = ~(torch.isnan(dv).any(-1) | torch.isinf(dv).any(-1)
-                          | torch.isnan(dlam).any(-1))
-            return dv, dlam, solved_ok
+            with span("ipm.gmres"):
+                if use_gmres_dense:
+                    dv, dlam = gmres_solve(factors_, dK64, dw,
+                                           torch.cat([-rd, -rg], dim=-1),
+                                           opt.dense_gmres_iters)
+                else:
+                    dv = ksolve(factors_, dK64, -(rd + _mv(Jt, rg / dc_c)))
+                    dlam = (_mv(J, dv) + rg) / dc_c
+                    # Iterative refinement on the regularized KKT residual
+                    # (always f64).
+                    for _ in range(opt.ir_rounds):
+                        res1 = -rd - (_mv(W0, dv) + dw[:, None] * dv
+                                      + _mv(Jt, dlam))
+                        res2 = -rg - (_mv(J, dv) - dc_c * dlam)
+                        ev = ksolve(factors_, dK64,
+                                    res1 + _mv(Jt, res2 / dc_c))
+                        dv = dv + ev
+                        dlam = dlam + (_mv(J, ev) - res2) / dc_c
+                solved_ok = ~(torch.isnan(dv).any(-1)
+                              | torch.isinf(dv).any(-1)
+                              | torch.isnan(dlam).any(-1))
+                return dv, dlam, solved_ok
 
         def attempt(dw):
             K = K0_f + dw.to(K0_f.dtype)[:, None, None] * eye_f
@@ -587,23 +608,25 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
             ok = ok0
             k = torch.ones(B, dtype=torch.int32, device=dev)
             factors = (factors_sel, dK64)
-            while True:
-                esc = (~ok) & (k < 30)
-                if not bool(esc.any()):
-                    break
-                dw_next = torch.where(
-                    dw_esc == 0.0, torch.clamp(0.3 * dw_last,
-                                               min=opt.delta_w_min),
-                    dw_esc * opt.delta_w_up)
-                dw_next = torch.clamp(dw_next, max=opt.delta_w_max)
-                dv_n, dlam_n, ok_n, fac_n = attempt(dw_next)
-                dw_esc = _where(esc, dw_next, dw_esc)
-                dv = _where(esc, dv_n, dv)
-                dlam = _where(esc, dlam_n, dlam)
-                ok = _where(esc, ok_n, ok)
-                factors = _tree_map(lambda a, b: _where(esc, a, b), fac_n,
-                                    factors)
-                k = k + esc.to(torch.int32)
+            with span("ipm.escalation"):
+                while True:
+                    esc = (~ok) & (k < 30)
+                    if not _any(esc):
+                        break
+                    _count_escalation(esc)
+                    dw_next = torch.where(
+                        dw_esc == 0.0, torch.clamp(0.3 * dw_last,
+                                                   min=opt.delta_w_min),
+                        dw_esc * opt.delta_w_up)
+                    dw_next = torch.clamp(dw_next, max=opt.delta_w_max)
+                    dv_n, dlam_n, ok_n, fac_n = attempt(dw_next)
+                    dw_esc = _where(esc, dw_next, dw_esc)
+                    dv = _where(esc, dv_n, dv)
+                    dlam = _where(esc, dlam_n, dlam)
+                    ok = _where(esc, ok_n, ok)
+                    factors = _tree_map(lambda a, b: _where(esc, a, b),
+                                        fac_n, factors)
+                    k = k + esc.to(torch.int32)
             # dw of the SELECTED factors (fed to the corrector's exact KKT
             # operator) vs the value reported to the dw_last heuristic: the
             # capstone level must not ratchet dw_last to delta_w_max.
@@ -628,7 +651,7 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
             factors = None
             while True:
                 esc = (~ok) & (k < 30)
-                if not bool(esc.any()):
+                if not _any(esc):
                     break
                 dw_next = torch.where(
                     k == 0, 0.0,
@@ -660,14 +683,15 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
             """Solve the KKT system with rhs (0, rg_soc) on the existing
             factorization (second-order corrections)."""
             fac, dK64_ = factors
-            if use_gmres_dense:
-                return gmres_solve(
-                    fac, dK64_, dw_op,
-                    torch.cat([torch.zeros_like(rd), -rg_soc], dim=-1),
-                    max(3, opt.dense_gmres_iters // 2))
-            dv_c = ksolve(fac, dK64_, -_mv(Jt, rg_soc / dc_c))
-            dlam_c = (_mv(J, dv_c) + rg_soc) / dc_c
-            return dv_c, dlam_c
+            with span("ipm.gmres"):
+                if use_gmres_dense:
+                    return gmres_solve(
+                        fac, dK64_, dw_op,
+                        torch.cat([torch.zeros_like(rd), -rg_soc], dim=-1),
+                        max(3, opt.dense_gmres_iters // 2))
+                dv_c = ksolve(fac, dK64_, -_mv(Jt, rg_soc / dc_c))
+                dlam_c = (_mv(J, dv_c) + rg_soc) / dc_c
+                return dv_c, dlam_c
 
         return dv, dlam, dzl, dzu, step_dir, dw_used, ok, corrector
 
@@ -724,7 +748,7 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
         # vanish) and add a proximal identity through the barrier diagonal:
         # damped Gauss-Newton on the violation.
         rst = restore.to(v.dtype)[:, None]
-        with record_function("banded.assemble"):
+        with span("banded.assemble"):
             blocks_e, blocks_c = kkt.assemble(x, theta, lam * (1.0 - rst),
                                               sig_x + rst, Dinv)
         rhs = -(rd_x + c_vjp(Dinv * gtil)[0])
@@ -767,7 +791,7 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
                               c[:, None]], dim=1)
 
         blocks_lv = _map_blocks(levels, blocks_e, blocks_c)
-        with record_function("banded.factor"):
+        with span("banded.factor"):
             facs = kkt.factor(blocks_lv, dws)
         lvl = _first_true(facs.ok)
         any_lvl = facs.ok.any(-1)
@@ -778,7 +802,7 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
         fac_sel = _tree_map(pick, facs)
         blocks_sel = _map_blocks(pick, blocks_lv)
         dw_spec = _take(dws, lvl)
-        with record_function("banded.gmres"):
+        with span("banded.gmres"):
             dx, dlam = solve_refine(blocks_sel, fac_sel, dw_spec, rhs,
                                     opt.gmres_iters)
         ok0 = any_lvl & torch.isfinite(dx).all(-1) \
@@ -795,12 +819,13 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
         fac_fin = fac_sel
         while True:
             esc = (~ok) & (k < 30)
-            if not bool(esc.any()):
+            if not _any(esc):
                 break
+            _count_escalation(esc)
             dw_next = torch.clamp(torch.clamp(dw_esc * opt.delta_w_up,
                                               min=opt.delta_w_min),
                                   max=opt.delta_w_max)
-            with record_function("banded.escalation"):
+            with span("banded.escalation"):
                 fac = kkt.factor(blocks_c, dw_next)
                 dxn, dln = solve_refine(blocks_c, fac, dw_next, rhs,
                                         opt.gmres_iters)
@@ -831,7 +856,7 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
         def corrector(rg_soc):
             """Second-order correction on the selected factors, with the
             same Krylov treatment as the step."""
-            with record_function("banded.corrector"):
+            with span("banded.corrector"):
                 dx_c = gmres_right(
                     lambda z: kkt.kmul(blocks_fin, dw_op, z),
                     lambda r: kkt.solve(blocks_fin, fac_fin, r),
@@ -1030,36 +1055,39 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
         hl, hu = consts("has_l", v), consts("has_u", v)
         # One derivative evaluation per iterate, shared by the KKT error,
         # the Newton step, and the line search.
-        x = v[:, :n]
-        gf = grad_f(x, theta)
-        rg = g_fn(v, theta)
-        f0 = f_fn(x, theta)
-        restore = state.rmode if opt.restoration \
-            else torch.zeros_like(state.rmode)
-        gf_eff = _where(restore, 0.0, gf)
-        if kkt is not None:
-            # Structured (block-banded) path: matrix-free — the dense
-            # Jacobian is never formed; J^T lam comes from one VJP.
-            _, c_vjp = vjp(lambda xx: c_fn(xx, theta), x)
-            Jtlam = c_vjp(lam)[0]
-        elif ev32:
-            # f32 assembly for the factorization/GMRES operator; exact
-            # f64 J^T lam from one VJP for the KKT error and the step rhs.
-            Jc = jac_c(x.float(), theta.float())
-            Jtlam = jt_lam(x, lam, theta)
-        else:
-            Jc = jac_c(x, theta)
-            Jtlam = _mv(Jc.transpose(1, 2), lam)
-        e_0 = kkt_error_pre(gf, Jtlam, rg, v, lam, zl, zu, 0.0)
-        done_now = _stop_rule(e_0, state.be0)
-        if kkt is not None:
-            step = compute_step_structured(v, lam, zl, zu, mu, dw_last,
-                                           theta, gf_eff, rg, Jtlam, c_vjp,
-                                           restore)
-        else:
-            step = compute_step(v, lam, zl, zu, mu, dw_last, theta, gf_eff,
-                                Jc, rg, restore,
-                                Jtlam64=Jtlam if ev32 else None)
+        with span("ipm.derivatives"):
+            x = v[:, :n]
+            gf = grad_f(x, theta)
+            rg = g_fn(v, theta)
+            f0 = f_fn(x, theta)
+            restore = state.rmode if opt.restoration \
+                else torch.zeros_like(state.rmode)
+            gf_eff = _where(restore, 0.0, gf)
+            if kkt is not None:
+                # Structured (block-banded) path: matrix-free — the dense
+                # Jacobian is never formed; J^T lam comes from one VJP.
+                _, c_vjp = vjp(lambda xx: c_fn(xx, theta), x)
+                Jtlam = c_vjp(lam)[0]
+            elif ev32:
+                # f32 assembly for the factorization/GMRES operator; exact
+                # f64 J^T lam from one VJP for the KKT error and the step
+                # rhs.
+                Jc = jac_c(x.float(), theta.float())
+                Jtlam = jt_lam(x, lam, theta)
+            else:
+                Jc = jac_c(x, theta)
+                Jtlam = _mv(Jc.transpose(1, 2), lam)
+            e_0 = kkt_error_pre(gf, Jtlam, rg, v, lam, zl, zu, 0.0)
+            done_now = _stop_rule(e_0, state.be0)
+        with span("ipm.step"):
+            if kkt is not None:
+                step = compute_step_structured(v, lam, zl, zu, mu, dw_last,
+                                               theta, gf_eff, rg, Jtlam,
+                                               c_vjp, restore)
+            else:
+                step = compute_step(v, lam, zl, zu, mu, dw_last, theta,
+                                    gf_eff, Jc, rg, restore,
+                                    Jtlam64=Jtlam if ev32 else None)
         dv, dlam, dzl, dzu, gf_dv, dw_used, ok, corrector = step
         # Best-iterate tracking: e_0 is the error of the INCOMING iterate.
         better = e_0 < state.be0
@@ -1079,36 +1107,40 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
         alpha_max = ftb_primal(v, dv, mu)
         alpha_dual = ftb_dual(zl, zu, dzl, dzu, mu)
         # Line-search trial evaluations stay f64 even in ev32 mode.
-        if opt.line_search == "filter":
-            (dv_eff, dlam_eff, alpha, ls_ok, fth_n, fph_n,
-             fcnt_n) = filter_line_search(state, dv, dlam, alpha_max, gf_dv,
-                                          corrector, theta, rg, f0)
-        else:
-            dv_eff, dlam_eff, alpha, ls_ok = line_search(
-                v, dv, dlam, mu, nu_new, alpha_max, gf_dv, corrector, theta,
-                rg, f0)
-            fth_n, fph_n, fcnt_n = state.fth, state.fph, state.fcnt
+        with span("ipm.line_search"):
+            if opt.line_search == "filter":
+                (dv_eff, dlam_eff, alpha, ls_ok, fth_n, fph_n,
+                 fcnt_n) = filter_line_search(state, dv, dlam, alpha_max,
+                                              gf_dv, corrector, theta, rg,
+                                              f0)
+            else:
+                dv_eff, dlam_eff, alpha, ls_ok = line_search(
+                    v, dv, dlam, mu, nu_new, alpha_max, gf_dv, corrector,
+                    theta, rg, f0)
+                fth_n, fph_n, fcnt_n = state.fth, state.fph, state.fcnt
         th0 = rg.abs().sum(-1)
         if opt.restoration:
-            # Restoration acceptance: Armijo decrease on the violation
-            # itself; overrides the filter result in that mode.
-            alphas_r = alpha_max[:, None] * 0.5 ** torch.arange(
-                opt.max_ls, dtype=alpha_max.dtype, device=v.device)
-            (th_tr,) = sweep(v, dv, alphas_r, lambda pts, row: [
-                g_fn(pts, row(theta)).abs().sum(-1)])
-            ok_r = th_tr <= th0[:, None] * (1.0 - opt.eta_armijo * alphas_r)
-            any_r = ok_r.any(-1)
-            k_r = torch.where(any_r, _first_true(ok_r), torch.where(
-                torch.isnan(th_tr), math.inf, th_tr).argmin(-1))
-            alpha_r = _take(alphas_r, k_r)
-            dv_eff = _where(restore, alpha_r[:, None] * dv, dv_eff)
-            # Multipliers freeze during restoration.
-            dlam_eff = _where(restore, 0.0, dlam_eff)
-            alpha = torch.where(restore, alpha_r, alpha)
-            ls_ok = torch.where(restore, any_r, ls_ok)
-            fth_n = _where(restore, state.fth, fth_n)
-            fph_n = _where(restore, state.fph, fph_n)
-            fcnt_n = torch.where(restore, state.fcnt, fcnt_n)
+            with span("ipm.restoration"):
+                # Restoration acceptance: Armijo decrease on the violation
+                # itself; overrides the filter result in that mode.
+                alphas_r = alpha_max[:, None] * 0.5 ** torch.arange(
+                    opt.max_ls, dtype=alpha_max.dtype, device=v.device)
+                (th_tr,) = sweep(v, dv, alphas_r, lambda pts, row: [
+                    g_fn(pts, row(theta)).abs().sum(-1)])
+                ok_r = th_tr <= th0[:, None] * (1.0 - opt.eta_armijo
+                                                * alphas_r)
+                any_r = ok_r.any(-1)
+                k_r = torch.where(any_r, _first_true(ok_r), torch.where(
+                    torch.isnan(th_tr), math.inf, th_tr).argmin(-1))
+                alpha_r = _take(alphas_r, k_r)
+                dv_eff = _where(restore, alpha_r[:, None] * dv, dv_eff)
+                # Multipliers freeze during restoration.
+                dlam_eff = _where(restore, 0.0, dlam_eff)
+                alpha = torch.where(restore, alpha_r, alpha)
+                ls_ok = torch.where(restore, any_r, ls_ok)
+                fth_n = _where(restore, state.fth, fth_n)
+                fph_n = _where(restore, state.fph, fph_n)
+                fcnt_n = torch.where(restore, state.fcnt, fcnt_n)
         fth_n = _where(bad, state.fth, fth_n)
         fph_n = _where(bad, state.fph, fph_n)
         fcnt_n = torch.where(bad, state.fcnt, fcnt_n)
@@ -1178,31 +1210,32 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
         # exhaustions, bounded by an entry budget; exit on sufficient
         # decrease or on stall).
         if opt.restoration:
-            th_new = g_fn(v_n, theta).abs().sum(-1)
-            stall = restore \
-                & (th_new > (1.0 - opt.resto_min_decrease) * th0)
-            r_stall_n = torch.where(stall, state.r_stall + 1,
-                                    torch.zeros_like(state.r_stall))
-            exit_stall = r_stall_n >= opt.resto_stall_patience
-            exit_r = (th_new <= torch.maximum(
-                state.th_min, opt.kappa_resto * state.th_enter)) \
-                | exit_stall
-            ls_fail_n = torch.where((~restore) & (~ls_ok) & (~bad),
-                                    state.ls_fail + 1,
-                                    torch.zeros_like(state.ls_fail))
-            enter_r = (~restore) & (th0 > state.th_min) & (~bad) \
-                & (ls_fail_n >= opt.resto_entry_fails) \
-                & (state.r_ent < opt.resto_max_entries)
-            r_ent_n = state.r_ent + enter_r.to(state.r_ent.dtype)
-            rmode_n = torch.where(restore, ~exit_r, enter_r)
-            th_enter_n = torch.where(enter_r, th0, state.th_enter)
-            fcnt_n = torch.where(restore & exit_r, torch.ones_like(fcnt_n),
-                                 fcnt_n)
-            # The restoration phase runs its own barrier: bump on entry,
-            # hold while restoring.
-            mu_n = torch.where(enter_r,
-                               torch.clamp(mu, min=0.1 * opt.mu_init),
-                               torch.where(restore & ~exit_r, mu, mu_n))
+            with span("ipm.restoration"):
+                th_new = g_fn(v_n, theta).abs().sum(-1)
+                stall = restore \
+                    & (th_new > (1.0 - opt.resto_min_decrease) * th0)
+                r_stall_n = torch.where(stall, state.r_stall + 1,
+                                        torch.zeros_like(state.r_stall))
+                exit_stall = r_stall_n >= opt.resto_stall_patience
+                exit_r = (th_new <= torch.maximum(
+                    state.th_min, opt.kappa_resto * state.th_enter)) \
+                    | exit_stall
+                ls_fail_n = torch.where((~restore) & (~ls_ok) & (~bad),
+                                        state.ls_fail + 1,
+                                        torch.zeros_like(state.ls_fail))
+                enter_r = (~restore) & (th0 > state.th_min) & (~bad) \
+                    & (ls_fail_n >= opt.resto_entry_fails) \
+                    & (state.r_ent < opt.resto_max_entries)
+                r_ent_n = state.r_ent + enter_r.to(state.r_ent.dtype)
+                rmode_n = torch.where(restore, ~exit_r, enter_r)
+                th_enter_n = torch.where(enter_r, th0, state.th_enter)
+                fcnt_n = torch.where(restore & exit_r,
+                                     torch.ones_like(fcnt_n), fcnt_n)
+                # The restoration phase runs its own barrier: bump on
+                # entry, hold while restoring.
+                mu_n = torch.where(enter_r,
+                                   torch.clamp(mu, min=0.1 * opt.mu_init),
+                                   torch.where(restore & ~exit_r, mu, mu_n))
         else:
             rmode_n = state.rmode
             th_enter_n = state.th_enter
@@ -1293,39 +1326,53 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
                     "torch.set_float32_matmul_precision('highest').")
         state = state0
         active = (~state.done) & (state.it < opt.max_iter)
-        while bool(active.any()):
-            new = body(state, theta)
-            state = _State(*(_where(active, a, b)
-                             for a, b in zip(new, state)))
-            active = (~state.done) & (state.it < opt.max_iter)
-        final = state
-        # Return the best-KKT iterate seen when a near-solution iterate
-        # was reached (a late noise-amplified step can destroy a
-        # near-converged iterate); otherwise the LAST iterate.
-        use_best = final.be0 <= max(opt.tol, 1e-4)
-        v_out = _where(use_best, final.bv, final.v)
-        lam_out = _where(use_best, final.blam, final.lam)
-        zl_out = _where(use_best, final.bzl, final.zl)
-        zu_out = _where(use_best, final.bzu, final.zu)
-        e_out = torch.where(use_best, final.be0, final.e0)
-        conv_out = final.be0 <= opt.tol
-        if ev32:
-            # Certify the returned iterate with one fresh full-f64
-            # evaluation (the running error read the f32 Jacobian).
-            e_out = kkt_error(v_out, lam_out, zl_out, zu_out, 0.0, theta)
-            conv_out = e_out <= opt.tol
-        x = v_out[:, :n]
-        return IPMResult(x=x, slack=v_out[:, n:], lam=lam_out,
-                         zl=zl_out, zu=zu_out,
-                         f=f_fn(x, theta).detach(), kkt_error=e_out,
-                         mu=final.mu, iterations=final.it,
-                         converged=conv_out)
+        go = _any(active)
+        while go:
+            with span("ipm.trip"):
+                count("ipm.trips")
+                count("ipm.rows_computed", active.shape[0])
+                count("ipm.active_rows", active)
+                new = body(state, theta)
+                state = _State(*(_where(active, a, b)
+                                 for a, b in zip(new, state)))
+                active = (~state.done) & (state.it < opt.max_iter)
+                go = _any(active)
+        with span("ipm.certify"):
+            final = state
+            # Return the best-KKT iterate seen when a near-solution iterate
+            # was reached (a late noise-amplified step can destroy a
+            # near-converged iterate); otherwise the LAST iterate.
+            use_best = final.be0 <= max(opt.tol, 1e-4)
+            v_out = _where(use_best, final.bv, final.v)
+            lam_out = _where(use_best, final.blam, final.lam)
+            zl_out = _where(use_best, final.bzl, final.zl)
+            zu_out = _where(use_best, final.bzu, final.zu)
+            e_out = torch.where(use_best, final.be0, final.e0)
+            conv_out = final.be0 <= opt.tol
+            if ev32:
+                # Certify the returned iterate with one fresh full-f64
+                # evaluation (the running error read the f32 Jacobian).
+                e_out = kkt_error(v_out, lam_out, zl_out, zu_out, 0.0,
+                                  theta)
+                conv_out = e_out <= opt.tol
+            x = v_out[:, :n]
+            return IPMResult(x=x, slack=v_out[:, n:], lam=lam_out,
+                             zl=zl_out, zu=zu_out,
+                             f=f_fn(x, theta).detach(), kkt_error=e_out,
+                             mu=final.mu, iterations=final.it,
+                             converged=conv_out)
+
+    def _solve(x0, theta, *warm):
+        with span("ipm.solve"):
+            with span("ipm.init"):
+                state = init_state(x0, theta, *warm)
+            return _run(state, theta)
 
     def solve(x0, theta):
-        return _run(init_state(x0, theta), theta)
+        return _solve(x0, theta)
 
     def solve_warm(x0, theta, lam0, zl0, zu0, mu0):
-        return _run(init_state(x0, theta, lam0, zl0, zu0, mu0), theta)
+        return _solve(x0, theta, lam0, zl0, zu0, mu0)
 
     solve.warm = solve_warm
     solve.dims = dict(n=n, m=m, ns=ns, nv=nv)
