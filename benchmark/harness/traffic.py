@@ -12,13 +12,16 @@ of perturbations, each of one state's initial value:
 factor from [low, high] for the nominal initial value.  Batch ``k`` is a
 Latin hypercube sample drawn from ``(design_seed, k)``: each
 perturbation's B values fall one into each of B equal strata of its range.
-The window's calls send batches 0, 1, ..., ``batches`` - 1 in that order,
-and start again at 0; the warm-up sends batch ``batches``, which no call of
-the window sends.  So every call meets fresh instances, drawn as a user's
-sweep would draw them (a batch's slowest instance sets its iterations, one
-instance can make the whole batch escalate), and every run meets the same
-ones in the same order: instances drawn from the run's seed made the draw,
-and not the program, set a run's rate (PERF.md, Findings).
+The window sends whole passes of the sequence (:func:`window`): a pass is
+one call of each of batches 0, 1, ..., ``batches`` - 1, in that order; the
+warm-up sends batch ``batches``, which no call of the window sends.  So
+every call meets fresh instances, drawn as a user's sweep would draw them
+(a batch's slowest instance sets its iterations, one instance can make the
+whole batch escalate), and every run meets the same ones in the same order:
+instances drawn from the run's seed made the draw, and not the program, set
+a run's rate (PERF.md, Findings).  And every window holds each instance of
+the sequence equally often, whatever the program's speed, so a faster
+program meets the same instances, and the same hard ones, as a slower one.
 
 The run's seed draws only the judge's sample of answers
 (:func:`sample_rng`).
@@ -26,7 +29,7 @@ The run's seed draws only the judge's sample of answers
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -58,6 +61,35 @@ def check(spec: Dict) -> None:
 def window_batch(spec: Dict, call: int) -> int:
     """The batch that the window's ``call``-th call (from 0) sends."""
     return call % int(spec["batches"])
+
+
+def another_pass(passes: Sequence[float], seconds: float) -> bool:
+    """Whether the window starts another pass, from the durations of the
+    passes so far: always a first one, then another only while the time
+    elapsed (their sum) plus their mean is at most ``seconds``."""
+    if not passes:
+        return True
+    elapsed = sum(passes)
+    return elapsed + elapsed / len(passes) <= seconds
+
+
+def window(spec: Dict, seconds: float, send: Callable[[int], object],
+           clock: Callable[[], float]) -> Tuple[List, float]:
+    """Send whole passes of the sequence, ``send(k)`` for each batch ``k``
+    in the order of :func:`window_batch`, starting a pass as
+    :func:`another_pass` says and never stopping inside one.  Returns what
+    each call of ``send`` returned, in order, and the window's seconds by
+    ``clock``: from the first call to the end of the last pass."""
+    out: List = []
+    passes: List[float] = []
+    t_first = t = clock()
+    while another_pass(passes, seconds):
+        for _ in range(int(spec["batches"])):
+            out.append(send(window_batch(spec, len(out))))
+        now = clock()
+        passes.append(now - t)
+        t = now
+    return out, t - t_first
 
 
 def warmup_batch(spec: Dict) -> int:

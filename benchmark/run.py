@@ -14,14 +14,20 @@ problem's published constants, mesh and precision),
 ``benchmark/metrics/<metric>.py`` (one reader per metric).
 
 A run builds the problem and its solver, solves one warm-up call (all of
-that is ``setup_s``), then calls in a closed loop for ``--seconds``: each
-call is one ``solve_batched`` call of the next batch of the cell's
-sequence (``harness/traffic.py``), and the next is sent when it returns.
-With ``--trace 1`` one more call, of the sequence's first batch, runs
-under ``torch.profiler`` after the window.  Once the window has closed, every
-answer is judged against the plain reference (``harness/judge.py``), and
-the run prints each number compared beside its limit as the last lines of
-standard error, and one JSON line as the last line of standard output:
+that is ``setup_s``), then calls in a closed loop: each call is one
+``solve_batched`` call of the next batch of the cell's sequence, and the
+next is sent when it returns.  The window is a whole number of passes of
+the sequence, one call of each batch in order (``harness/traffic.py``): a
+first pass always, and another while the time elapsed plus the mean pass
+fits in ``--seconds``.  With ``--trace 1`` one more call, of the
+sequence's first batch, runs under ``torch.profiler`` after the window.
+Once the window has closed, every answer is judged against the plain
+reference (``harness/judge.py``); ``attempted``, ``failed`` and the share
+``uncertified`` count the window's answers alone, so every run counts the
+same instances of each pass, and the traced call's answers are held to the
+other limits.  The run prints each number compared beside its limit as the
+last lines of standard error, and one JSON line as the last line of
+standard output:
 ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end
 metrics, or with ``--trace 1`` its per-layer ones), ``device``, with
 ``--trace 1`` a ``breakdown``, and last ``checks``.
@@ -250,9 +256,11 @@ def make_call(prog: Program, mix: Dict, k: int,
 
 # ---------------------------------------------------------------- judge
 def judge(cell: Cell, mesh: Mesh, calls: List[Call], seed: int,
-          ocp=None) -> Dict:
+          ocp=None, counted: Optional[int] = None) -> Dict:
     """The comparison with the plain reference over every answer of
-    ``calls``: the numbers compared, and which answers it rejects."""
+    ``calls``: the numbers compared, and which answers it rejects.  The
+    first ``counted`` answers (all by default) are those attempted: they
+    alone enter ``attempted``, ``failed`` and ``uncertified``."""
     if ocp is None:
         ocp = reference_problem(cell)
     tr = Transcription(ocp, mesh)
@@ -275,7 +283,7 @@ def judge(cell: Cell, mesh: Mesh, calls: List[Call], seed: int,
     for name, vals in (("feas", feas), ("stat", stat)):
         if name in lim:
             rejected |= np.nan_to_num(vals, nan=0.0) > lim[name]
-    failed = ~conv | rejected
+    failed = (~conv | rejected)[:conv.size if counted is None else counted]
     values = {"feas": float(np.nanmax(feas)) if idx.size else None,
               "stat": float(np.nanmax(stat))
               if np.isfinite(stat).any() else None,
@@ -286,7 +294,7 @@ def judge(cell: Cell, mesh: Mesh, calls: List[Call], seed: int,
     correct = all(c["limit"] is not None
                   and (c["value"] is None or c["value"] <= c["limit"])
                   for c in checks.values())
-    return dict(checks=checks, correct=correct, attempted=int(conv.size),
+    return dict(checks=checks, correct=correct, attempted=int(failed.size),
                 failed=failed, stat_count=int(np.isfinite(stat).sum()))
 
 
@@ -356,13 +364,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     torch = prog.torch
     make_call(prog, mix, traffic.warmup_batch(mix), nominal)
 
-    calls: List[Call] = []
-    t_first = time.perf_counter()
-    setup_s = t_first - T_START
-    while not calls or time.perf_counter() - t_first < seconds:
-        calls.append(make_call(
-            prog, mix, traffic.window_batch(mix, len(calls)), nominal))
-    window_s = time.perf_counter() - t_first
+    setup_s = time.perf_counter() - T_START
+    calls, window_s = traffic.window(
+        mix, seconds, lambda k: make_call(prog, mix, k, nominal),
+        time.perf_counter)
 
     summary, traced = None, []
     if trace:
@@ -385,12 +390,12 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         torch.cuda.empty_cache()
 
     torch_threads(judge_threads)
-    verdict = judge(cell, mesh, calls + traced, seed, ocp)
-    n_window = sum(len(c.converged) for c in calls)
+    verdict = judge(cell, mesh, calls + traced, seed, ocp,
+                    counted=sum(len(c.converged) for c in calls))
     ctx = SimpleNamespace(
         setup_s=setup_s, window_s=window_s, calls=calls, nv=nv,
         batch=int(mix["B"]),
-        certified=int((~verdict["failed"][:n_window]).sum()),
+        certified=int((~verdict["failed"]).sum()),
         trace=summary,
         traced_trips=traced[0].iter_max if traced else 0)
     metrics = {}

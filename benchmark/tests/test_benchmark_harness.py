@@ -4,14 +4,17 @@ Run from the root of a checkout::
 
     python -m pytest benchmark/tests -q
 
-They check that every cell's files resolve, that a rehearsal of each cell
-prints the result line the contract asks for, that the plain reference
+They check that every cell's files resolve, that the window sends whole
+passes of the traffic's sequence and counts their answers alone, that a
+rehearsal of each cell prints the result line the contract asks for, that
+the plain reference
 agrees with the program, that the control and the planted faults come out
 not correct, that no run loads JAX or the JAX package and the reference
 nothing of the program, and the trace arithmetic on a synthetic trace.
 The test marked ``cuda`` runs a cell on the card and skips without one.
 """
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -128,6 +131,60 @@ def test_traffic_is_a_fixed_sequence_of_latin_hypercube_batches():
     assert np.array_equal(v["a"], a["a"]) and np.allclose(v["b"], 2 * a["b"])
 
 
+class FakeClock:
+    """A clock that moves only when a call of the window is sent."""
+
+    def __init__(self, per_call):
+        self.now, self.per_call, self.sent = 100.0, per_call, []
+
+    def __call__(self):
+        return self.now
+
+    def send(self, k):
+        self.now += self.per_call(k, len(self.sent))
+        self.sent.append(k)
+        return k
+
+
+# (seconds of each call by its batch and its index in the window, passes)
+PASS_CASES = {
+    # a pass longer than the window: one whole pass all the same
+    "pass_longer_than_window": (lambda k, i: 6.0, 1),
+    # passes of a quarter of the window: 4, the last ending at the window's
+    # length
+    "pass_of_a_quarter": (lambda k, i: 1.25, 4),
+    # a first pass of 8 s, so a second is started, and a second of 40 s,
+    # which crosses the window's length at its seventh call and is sent
+    # whole
+    "slower_second_pass": (lambda k, i: 1.0 if i < 8 else 5.0, 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PASS_CASES))
+def test_window_sends_whole_passes(case):
+    per_call, passes = PASS_CASES[case]
+    mix = {"batches": 8}
+    clock = FakeClock(per_call)
+    out, window_s = traffic.window(mix, 40.0, clock.send, clock)
+    assert clock.sent == out == list(range(8)) * passes
+    durations = [sum(per_call(k, 8 * p + k) for k in range(8))
+                 for p in range(passes)]
+    assert window_s == clock.now - 100.0 == sum(durations)
+    # the rule reads only the passes' durations
+    assert [traffic.another_pass(durations[:j], 40.0)
+            for j in range(passes + 1)] == [True] * passes + [False]
+
+
+def test_pass_rule():
+    assert traffic.another_pass([], 1.0)
+    assert not traffic.another_pass([3.0], 1.0)
+    assert traffic.another_pass([0.25] * 3, 1.0)
+    assert not traffic.another_pass([0.25] * 4, 1.0)
+    # elapsed 0.9 and a mean of 0.3: 1.2 over the window of 1
+    assert not traffic.another_pass([0.1, 0.5, 0.3], 1.0)
+    assert traffic.another_pass([0.1, 0.5, 0.3], 1.2)
+
+
 # ---------------------------------------------------------------- runs
 REHEARSAL = """
 import sys, json
@@ -153,8 +210,11 @@ def test_rehearsal_prints_the_result_line(name):
     out = json.loads(lines[-2])
     assert list(out) == ["correct", "attempted", "failed", "metrics",
                          "device", "breakdown", "checks"]
-    assert out["attempted"] >= 2
     cell = run.load_cell(name)
+    # whole passes of the sequence at B = 2; the traced call is not counted
+    per_pass = int(cell.workload["mix"]["batches"]) * 2
+    assert out["attempted"] >= per_pass
+    assert out["attempted"] % per_pass == 0
     compared = [k for k in ("feas", "stat", "uncertified")
                 if k in cell.workload["limits"]]
     assert list(out["checks"]) == compared
@@ -208,6 +268,73 @@ def _calls(cell, prog, n=1, B=2):
     nominal = {s: v for s, v in ocp.initial.items() if v is not None}
     return [run.make_call(prog, mix, traffic.window_batch(mix, i), nominal)
             for i in range(n)]
+
+
+def _copy(call, **changes):
+    return dataclasses.replace(
+        call, x_full=call.x_full.copy(), objective=call.objective.copy(),
+        converged=call.converged.copy(), **changes)
+
+
+@pytest.fixture(scope="module")
+def sequence(cartpole):
+    """One pass of the cart-pole cell's sequence at B = 2, every answer
+    converged; and the same with one answer of the last batch planted
+    unconverged."""
+    cell, prog = cartpole
+    calls = _calls(cell, prog, n=int(cell.workload["mix"]["batches"]))
+    assert all(c.converged.all() for c in calls)
+    last = _copy(calls[-1])
+    last.converged[1] = False
+    return cell, calls, calls[:-1] + [last]
+
+
+def test_failed_share_is_the_same_for_one_pass_and_five(sequence):
+    """An answer that fails in the sequence's last batch fails once a pass:
+    a window of whole passes reads the same failed share at any number of
+    passes, where a window cut after any call read fewer failures the more
+    calls past the last whole pass it held."""
+    cell, _, calls = sequence
+    n = len(calls)
+
+    def share(window):
+        verdict = run.judge(cell, Mesh(10, 4), window, SEED)
+        assert verdict["attempted"] == 2 * len(window)
+        return int(verdict["failed"].sum()), verdict["attempted"], \
+            verdict["checks"]["uncertified"]["value"]
+
+    one, five = share(calls), share(calls * 5)
+    assert one[:2] == (1, 2 * n) and five[:2] == (5, 10 * n)
+    assert one[2] == five[2] == 1 / (2 * n)
+    # the old cut: 11 calls (a pass and batches 0-2) against 40
+    cut = share(calls + calls[:3])
+    assert cut[:2] == (1, 22) and cut[2] < five[2]
+
+
+def test_traced_answers_count_in_checks_and_not_in_attempted(sequence,
+                                                              cartpole):
+    """The traced call is judged: an answer of it beyond ``feas``'s limit
+    makes the run not correct.  It is not attempted: its answers enter
+    neither ``attempted`` nor ``failed`` nor ``uncertified``."""
+    cell, calls, _ = sequence
+    _, prog = cartpole
+    n = 2 * len(calls)
+    alone = run.judge(cell, Mesh(10, 4), calls, SEED)
+    assert alone["correct"], alone["checks"]
+    altered = _plant("answer_altered", [_copy(calls[0])], prog)
+    unconverged = _copy(calls[0])
+    unconverged.converged[:] = False
+    for traced, correct in ((altered, False), ([unconverged], True)):
+        verdict = run.judge(cell, Mesh(10, 4), calls + traced, SEED,
+                            counted=n)
+        assert verdict["correct"] is correct, verdict["checks"]
+        assert verdict["attempted"] == n
+        assert int(verdict["failed"].sum()) == 0
+        assert verdict["checks"]["uncertified"] == \
+            alone["checks"]["uncertified"]
+    assert verdict["checks"]["feas"] == alone["checks"]["feas"]
+    bad = run.judge(cell, Mesh(10, 4), calls + altered, SEED, counted=n)
+    assert bad["checks"]["feas"]["value"] > cell.workload["limits"]["feas"]
 
 
 def test_reference_agrees_with_the_program(cartpole):
