@@ -24,6 +24,7 @@ import threading
 
 import torch
 
+from ..profiling import bump
 from . import _build
 
 #: largest matrix the kernel takes: its shared memory (at most 112 KB, so
@@ -35,6 +36,16 @@ MAX_BLOCK_N = 160
 #: distinct devices in a batch solve call the wrappers from several threads
 #: at once
 _count_lock = threading.Lock()
+
+
+def _count_launch() -> None:
+    with _count_lock:
+        chol_inv.launches += 1
+
+
+def _count_call() -> None:
+    with _count_lock:
+        blocked_chol_linv.calls += 1
 
 
 def _check_stack(A: torch.Tensor) -> None:
@@ -87,13 +98,13 @@ def chol_inv(A: torch.Tensor, return_diag: bool = False):
         if err != 0:
             raise RuntimeError(f"chol_linv kernel launch failed: CUDA error "
                                f"{err} (B={B}, n={n})")
-        with _count_lock:
-            chol_inv.launches += 1
+        bump(_count_launch)
     return (out, diag) if return_diag else out
 
 
 #: kernel launches since the last reset (a counter, set to 0 by callers that
-#: want to prove a run went through the kernel; counted under a lock)
+#: want to prove a run went through the kernel; counted under a lock, and
+#: once per replay of a graph that holds the launch)
 chol_inv.launches = 0
 
 
@@ -147,16 +158,16 @@ def blocked_chol_linv(A: torch.Tensor, block: int | None = None):
         B *= d
     dev = A.device
     Af = A.reshape(B, n, n).to(torch.float32)
-    with _count_lock:
-        blocked_chol_linv.calls += 1
+    bump(_count_call)
     if n_pad == n == block:
         Linv, diag_L = chol_inv(Af.contiguous(), return_diag=True)
         return diag_L.reshape(*batch, n), Linv.reshape(*batch, n, n)
     if n_pad != n:
         P = torch.zeros((B, n_pad, n_pad), dtype=torch.float32, device=dev)
         P[:, :n, :n] = Af
-        idx = torch.arange(n, n_pad, device=dev)
-        P[:, idx, idx] = 1.0
+        # a fill on the device (an indexed store of a number would copy
+        # it from the host, which a CUDA graph's capture refuses)
+        P.diagonal(dim1=-2, dim2=-1)[:, n:].fill_(1.0)
         Af = P
     b = block
 
@@ -199,6 +210,7 @@ def blocked_chol_linv(A: torch.Tensor, block: int | None = None):
             Linv.reshape(*batch, n, n))
 
 
-#: calls since the last reset (a counter, counted under a lock: with
-#: ``chol_inv.launches`` it gives the kernel launches per factorization)
+#: calls since the last reset (a counter, counted under a lock and once per
+#: replay of a graph that holds the call: with ``chol_inv.launches`` it
+#: gives the kernel launches per factorization)
 blocked_chol_linv.calls = 0

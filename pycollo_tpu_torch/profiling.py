@@ -41,11 +41,21 @@ The stages of a batched solve, as they nest::
       ipm.certify                the returned iterate and its KKT error
     batch.outputs                assembly and device-to-host copies
 
+On a card the dense trip is replayed as CUDA graphs (``solver/graphs.py``):
+a trip's spans are ``ipm.replay`` (each graph), ``ipm.escalation`` and
+``ipm.wait``, and the spans of the code inside the graphs
+(``ipm.derivatives``, ``ipm.step``, ``ipm.line_search``, ...) record once,
+inside ``ipm.capture``, when the graphs are captured.
+
 Counters: ``ipm.trips``, ``ipm.syncs`` (host reads of device values),
 ``ipm.rows_computed`` (the batch, every trip), ``ipm.active_rows`` (the
 rows still iterating, every trip), ``ipm.escalation_trips``,
-``ipm.escalation_rows_factored`` (the batch, every escalation trip) and
-``ipm.escalation_rows`` (the rows that escalate, every escalation trip).
+``ipm.escalation_rows_factored`` (the batch, every escalation trip),
+``ipm.escalation_rows`` (the rows that escalate, every escalation trip),
+``ipm.graph_captures`` (graphs captured) and ``ipm.graph_replays`` (trips
+run by replaying graphs).  The counts of code inside a graph are made at
+its capture on a tape (:func:`taping`), and each replay makes them again
+(:func:`replay`), so a replayed trip counts what an eager one counts.
 
 :class:`Profiler` times a mesh iteration's set-up stages
 (``transcription.py``) into its own ``spans``; its spans are spans of this
@@ -74,6 +84,9 @@ class _Local(threading.local):
     def __init__(self):
         #: this thread's open recorded spans: [path, start, child ns]
         self.stack: List[list] = []
+        #: while this thread captures a graph: the counter updates its code
+        #: makes, kept for each replay to make (:func:`taping`)
+        self.tape: Optional[list] = None
 
 
 _local = _Local()
@@ -187,10 +200,55 @@ def span(name: str):
 def count(name: str, n=1) -> None:
     """Add ``n`` to the counter ``name`` of the open recording; nothing when
     none is open.  ``n`` is a number, or a device tensor whose sum is added
-    on its device and read when the recording closes."""
+    on its device and read when the recording closes.  Inside
+    :func:`taping` the count goes on the tape instead."""
+    bump(_count, name, n)
+
+
+def _count(name: str, n) -> None:
     rec = _record
     if rec is not None:
         rec._add(name, n)
+
+
+def bump(update, *args) -> None:
+    """Make the counter update ``update(*args)`` now, or, inside
+    :func:`taping`, put it on this thread's tape (the package's counters
+    that live outside a recording, such as
+    ``ops.block_chol.blocked_chol_linv.calls``, are updated through this)."""
+    tape = _local.tape
+    if tape is None:
+        update(*args)
+    else:
+        tape.append((update, args))
+
+
+@contextmanager
+def taping():
+    """Keep the counter updates of this thread (:func:`count`,
+    :func:`bump`) on a tape, which the context yields, instead of making
+    them.  A graph's capture runs inside one, and each replay of the graph
+    makes the tape's updates (:func:`replay`): the code inside the graph
+    runs only at the capture."""
+    tape: list = []
+    outer = set_tape(tape)
+    try:
+        yield tape
+    finally:
+        set_tape(outer)
+
+
+def set_tape(tape: Optional[list]) -> Optional[list]:
+    """Make ``tape`` this thread's tape (None: make counts as they come);
+    returns the tape it had."""
+    outer, _local.tape = _local.tape, tape
+    return outer
+
+
+def replay(tape: list) -> None:
+    """Make the counter updates that :func:`taping` kept on ``tape``."""
+    for update, args in tape:
+        bump(update, *args)
 
 
 @contextmanager

@@ -34,12 +34,21 @@ at a speculative ladder of ``dw`` levels whose last level is the
 convexified Hessian, and the step solved by GMRES with the exact banded
 matvec, matrix-free (J^T lam from one VJP, J dx from one JVP; no dense
 Jacobian).  The banded path runs in the working dtype (f64).
+
+On a CUDA card the dense path with the speculative ladder replays each
+loop trip as CUDA graphs (``solver/graphs.py``), captured at the first trip
+of a solver and batch shape, with the escalation loop run eagerly between
+them: the trip's answers are the eager trip's, bit for bit, without its
+thousands of launches from Python.
 """
 
 from __future__ import annotations
 
 import math
+import threading
+from contextlib import nullcontext
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -48,6 +57,7 @@ from torch.func import grad, hessian, jacfwd, jacrev, jvp, vjp, vmap
 
 from ..profiling import count, span
 from ..utils import FORWARD_AD_LOCK, DeviceConstants
+from . import graphs
 from .banded import ArrowBlocks, PhaseBand, _mv
 from .krylov import gmres_right
 
@@ -214,10 +224,10 @@ class _State(NamedTuple):
 
 
 def _where(cond, a, b):
-    """``torch.where`` with a per-instance (B,) condition."""
-    if not torch.is_tensor(a):
-        a = torch.as_tensor(a, dtype=b.dtype, device=b.device)
-    nd = max(a.dim(), b.dim() if torch.is_tensor(b) else 0)
+    """``torch.where`` with a per-instance (B,) condition; ``a`` may be a
+    number (taken as it is: a tensor made of it on the device would be a
+    host-to-device copy, which a CUDA graph's capture refuses)."""
+    nd = max(a.dim() if torch.is_tensor(a) else 0, b.dim())
     return torch.where(cond.reshape(cond.shape + (1,) * (nd - cond.dim())),
                        a, b)
 
@@ -434,19 +444,16 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
         return kkt_error_pre(grad_f(x, theta), jt_lam(x, lam, theta),
                              g_fn(v, theta), v, lam, zl, zu, mu)
 
-    def compute_step(v, lam, zl, zu, mu, dw_last, theta, gf, Jc, rg,
-                     restore, Jtlam64=None):
-        """Condensed-space Newton step for every instance.
+    #: a healthy pivot of the equilibrated matrix is O(1); below the floor
+    #: (or NaN) the level is indefinite
+    piv_floor = 1e-16 if mixed else 1e-100
 
-        Factors the equilibrated condensed matrix at a speculative ladder
-        of ``dw`` levels in one batched call and keeps, per instance, the
-        first positive-definite level; instances with none escalate above
-        the top level in a loop that updates only them.  ``restore``
-        (B,) bool: feasibility-restoration mode (the caller passes
-        ``gf = 0`` for those instances and the Hessian becomes a proximal
-        identity).  Returns (dv, dlam, dzl, dzu, step_dir, dw_used, ok,
-        corrector).
-        """
+    def step_operator(v, lam, zl, zu, mu, dw_last, theta, gf, Jc, rg,
+                      restore, Jtlam64=None):
+        """The condensed KKT operator of the Newton step at the iterate:
+        the Hessian, the W0/J/K0 assembly and the step's residuals, in a
+        namespace that the factorizations and solves below read and the
+        inertia correction fills in (arguments as :func:`compute_step`)."""
         B = v.shape[0]
         dev = v.device
         x = v[:, :n]
@@ -485,215 +492,259 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
         # matrix K = W + J^T J / dc is positive definite under SOSC
         # (MadNLP-style "LDL-free" condensed-space KKT; see PAPERS.md).
         dc = torch.clamp(1e-8 * torch.sqrt(torch.sqrt(mu)), min=opt.dc_floor)
-        dc_c = dc[:, None]
         # K is only ever factored: every residual below is computed from
         # W0/J/dc directly.  In mixed mode the JtJ product and the
         # factorization run in f32.
         if mixed:
             J_fc = J.to(fac_dtype)
             W0_fc = W0.to(fac_dtype)
-            piv_floor = 1e-16
         else:
             J_fc = J
             W0_fc = W0
-            piv_floor = 1e-100
         Jt_fc = J_fc.transpose(1, 2)
         eye_f = torch.eye(nv, dtype=J_fc.dtype, device=dev)
         K0_f = W0_fc + (Jt_fc @ J_fc) / dc.to(J_fc.dtype)[:, None, None]
+        return SimpleNamespace(
+            v=v, zl=zl, zu=zu, dw_last=dw_last, gf=gf, rg=rg, hl=hl, hu=hu,
+            sig_l=sig_l, sig_u=sig_u, mu_dl=mu_dl, mu_du=mu_du, W0=W0, J=J,
+            Jt=Jt, rd=rd, dc_c=dc[:, None], W0_fc=W0_fc, J_fc=J_fc,
+            Jt_fc=Jt_fc, eye_f=eye_f, K0_f=K0_f)
 
-        def equil_factor(Kmat):
-            """Jacobi-equilibrated Cholesky of a (B, ..., nv, nv) stack.
+    def equil_factor(Kmat):
+        """Jacobi-equilibrated Cholesky of a (B, ..., nv, nv) stack.
 
-            K' = D K D with D = diag(K)^-1/2 bounds factor growth by the
-            scaled condition number (the role pivoting plays in MUMPS)."""
-            with span("ipm.factor"):
-                dK = torch.sqrt(torch.clamp(
-                    torch.diagonal(Kmat, dim1=-2, dim2=-1), min=1e-30))
-                Ks = Kmat / dK[..., :, None] / dK[..., None, :]
-                factors_ = spd_factor(Ks)
-                # Indefiniteness: NaN or sub-floor pivots (a healthy pivot
-                # of the equilibrated matrix is O(1)).
-                diag = spd_diag(factors_)
-                lvl_ok = torch.isfinite(diag).all(-1) \
-                    & ~(diag < piv_floor).any(-1)
-                return factors_, dK, lvl_ok
+        K' = D K D with D = diag(K)^-1/2 bounds factor growth by the
+        scaled condition number (the role pivoting plays in MUMPS)."""
+        with span("ipm.factor"):
+            dK = torch.sqrt(torch.clamp(
+                torch.diagonal(Kmat, dim1=-2, dim2=-1), min=1e-30))
+            Ks = Kmat / dK[..., :, None] / dK[..., None, :]
+            factors_ = spd_factor(Ks)
+            # Indefiniteness: NaN or sub-floor pivots.
+            diag = spd_diag(factors_)
+            lvl_ok = torch.isfinite(diag).all(-1) \
+                & ~(diag < piv_floor).any(-1)
+            return factors_, dK, lvl_ok
 
-        def ksolve(factors_, dK64, rhs):
-            z = spd_solve(factors_, (rhs / dK64).to(fac_dtype or v.dtype))
-            return z.to(v.dtype) / dK64
+    def ksolve(s, factors_, dK64, rhs):
+        dt = s.v.dtype
+        z = spd_solve(factors_, (rhs / dK64).to(fac_dtype or dt))
+        return z.to(dt) / dK64
 
-        def gmres_solve(factors_, dK64, dw, rhs, iters):
-            """Coupled-KKT GMRES in the factorization dtype: the f64 rhs
-            pins the outer fixed point; the refinement only needs accuracy
-            relative to the step."""
-            fdt = fac_dtype or v.dtype
-            dK_f = dK64.to(fdt)
-            dc_f = dc_c.to(fdt)
-            dw_f = dw.to(fdt)[:, None]
+    def gmres_solve(s, factors_, dK64, dw, rhs, iters):
+        """Coupled-KKT GMRES in the factorization dtype: the f64 rhs
+        pins the outer fixed point; the refinement only needs accuracy
+        relative to the step."""
+        fdt = fac_dtype or s.v.dtype
+        dK_f = dK64.to(fdt)
+        dc_f = s.dc_c.to(fdt)
+        dw_f = dw.to(fdt)[:, None]
 
-            def prec(r):
-                r1 = r[:, :nv]
-                r2 = r[:, nv:]
-                dv_ = spd_solve(factors_, (r1 + _mv(Jt_fc, r2 / dc_f))
-                                / dK_f) / dK_f
-                return torch.cat([dv_, (_mv(J_fc, dv_) - r2) / dc_f], dim=-1)
+        def prec(r):
+            r1 = r[:, :nv]
+            r2 = r[:, nv:]
+            dv_ = spd_solve(factors_, (r1 + _mv(s.Jt_fc, r2 / dc_f))
+                            / dK_f) / dK_f
+            return torch.cat([dv_, (_mv(s.J_fc, dv_) - r2) / dc_f], dim=-1)
 
-            def amul(wv):
-                dv_ = wv[:, :nv]
-                dl_ = wv[:, nv:]
-                return torch.cat([_mv(W0_fc, dv_) + dw_f * dv_
-                                  + _mv(Jt_fc, dl_), _mv(J_fc, dv_)], dim=-1)
+        def amul(wv):
+            dv_ = wv[:, :nv]
+            dl_ = wv[:, nv:]
+            return torch.cat([_mv(s.W0_fc, dv_) + dw_f * dv_
+                              + _mv(s.Jt_fc, dl_), _mv(s.J_fc, dv_)], dim=-1)
 
-            sol = gmres_right(amul, prec, rhs.to(fdt), iters)
-            return sol[:, :nv].to(v.dtype), sol[:, nv:].to(v.dtype)
+        sol = gmres_right(amul, prec, rhs.to(fdt), iters)
+        return sol[:, :nv].to(s.v.dtype), sol[:, nv:].to(s.v.dtype)
 
-        def solve_with(factors_, dK64, dw):
-            """KKT solve + refinement on given factors."""
-            with span("ipm.gmres"):
-                if use_gmres_dense:
-                    dv, dlam = gmres_solve(factors_, dK64, dw,
-                                           torch.cat([-rd, -rg], dim=-1),
-                                           opt.dense_gmres_iters)
-                else:
-                    dv = ksolve(factors_, dK64, -(rd + _mv(Jt, rg / dc_c)))
-                    dlam = (_mv(J, dv) + rg) / dc_c
-                    # Iterative refinement on the regularized KKT residual
-                    # (always f64).
-                    for _ in range(opt.ir_rounds):
-                        res1 = -rd - (_mv(W0, dv) + dw[:, None] * dv
-                                      + _mv(Jt, dlam))
-                        res2 = -rg - (_mv(J, dv) - dc_c * dlam)
-                        ev = ksolve(factors_, dK64,
-                                    res1 + _mv(Jt, res2 / dc_c))
-                        dv = dv + ev
-                        dlam = dlam + (_mv(J, ev) - res2) / dc_c
-                solved_ok = ~(torch.isnan(dv).any(-1)
-                              | torch.isinf(dv).any(-1)
-                              | torch.isnan(dlam).any(-1))
-                return dv, dlam, solved_ok
+    def solve_with(s, factors_, dK64, dw):
+        """KKT solve + refinement on given factors."""
+        rd, rg, dc_c = s.rd, s.rg, s.dc_c
+        with span("ipm.gmres"):
+            if use_gmres_dense:
+                dv, dlam = gmres_solve(s, factors_, dK64, dw,
+                                       torch.cat([-rd, -rg], dim=-1),
+                                       opt.dense_gmres_iters)
+            else:
+                dv = ksolve(s, factors_, dK64, -(rd + _mv(s.Jt, rg / dc_c)))
+                dlam = (_mv(s.J, dv) + rg) / dc_c
+                # Iterative refinement on the regularized KKT residual
+                # (always f64).
+                for _ in range(opt.ir_rounds):
+                    res1 = -rd - (_mv(s.W0, dv) + dw[:, None] * dv
+                                  + _mv(s.Jt, dlam))
+                    res2 = -rg - (_mv(s.J, dv) - dc_c * dlam)
+                    ev = ksolve(s, factors_, dK64,
+                                res1 + _mv(s.Jt, res2 / dc_c))
+                    dv = dv + ev
+                    dlam = dlam + (_mv(s.J, ev) - res2) / dc_c
+            solved_ok = ~(torch.isnan(dv).any(-1)
+                          | torch.isinf(dv).any(-1)
+                          | torch.isnan(dlam).any(-1))
+            return dv, dlam, solved_ok
 
-        def attempt(dw):
-            K = K0_f + dw.to(K0_f.dtype)[:, None, None] * eye_f
-            factors_, dK, lvl_ok = equil_factor(K)
-            dK64 = dK.to(v.dtype)
-            dv, dlam, solved_ok = solve_with(factors_, dK64, dw)
-            return dv, dlam, lvl_ok & solved_ok, (factors_, dK64)
+    def attempt(s, dw):
+        K = s.K0_f + dw.to(s.K0_f.dtype)[:, None, None] * s.eye_f
+        factors_, dK, lvl_ok = equil_factor(K)
+        dK64 = dK.to(s.v.dtype)
+        dv, dlam, solved_ok = solve_with(s, factors_, dK64, dw)
+        return dv, dlam, lvl_ok & solved_ok, (factors_, dK64)
 
+    def ladder(s):
+        """Speculative multi-level inertia correction: factor K at
+        dw in {0, spec_levels * 0.3*dw_last (, delta_w_max)} in ONE
+        batched call and keep the first positive-definite level.  Leaves
+        in ``s`` the step on the selected factors and ``esc``, the rows
+        with no level, which :func:`escalate` takes above the top level."""
+        dw1 = torch.clamp(0.3 * s.dw_last, min=opt.delta_w_min)
+        dws = torch.stack(
+            [torch.zeros_like(dw1)]
+            + [torch.clamp(m_ * dw1, max=opt.delta_w_max)
+               for m_ in opt.spec_levels]
+            + ([torch.full_like(dw1, opt.delta_w_max)]
+               if opt.spec_capstone else []), dim=1)          # (B, L)
+        K_all = s.K0_f[:, None] \
+            + dws.to(s.K0_f.dtype)[:, :, None, None] * s.eye_f
+        fac_all, dK_all, lvl_ok = equil_factor(K_all)
+        lvl = _first_true(lvl_ok)
+        any_lvl = lvl_ok.any(-1)
+        factors_sel = tuple(_take(a, lvl) for a in fac_all) \
+            if isinstance(fac_all, tuple) else _take(fac_all, lvl)
+        dK64 = _take(dK_all, lvl).to(s.v.dtype)
+        dw_spec = _take(dws, lvl)
+        s.dv, s.dlam, solved_ok = solve_with(s, factors_sel, dK64, dw_spec)
+        s.dws, s.lvl, s.dw_spec = dws, lvl, dw_spec
+        s.ok0 = any_lvl & solved_ok
+        # What the escalation updates in place.
+        s.factors = (factors_sel, dK64)
+        s.ok = s.ok0.clone()
+        s.dw_esc = dws[:, -1].clone()
+        s.k = torch.ones(s.v.shape[0], dtype=torch.int32,
+                         device=s.v.device)
+        s.esc = (~s.ok) & (s.k < 30)
+
+    def escalate(s):
+        """Escalation above the top level for the rows of ``s.esc`` (a
+        batched while_loop: rows whose condition is false keep their
+        values); zero trips when all are satisfied.  Updates the step,
+        the factors, ``dw_esc``, ``ok`` and ``k`` of ``s`` in place."""
+        with span("ipm.escalation"):
+            esc = s.esc
+            while _any(esc):
+                _count_escalation(esc)
+                dw_next = torch.where(
+                    s.dw_esc == 0.0, torch.clamp(0.3 * s.dw_last,
+                                                 min=opt.delta_w_min),
+                    s.dw_esc * opt.delta_w_up)
+                dw_next = torch.clamp(dw_next, max=opt.delta_w_max)
+                dv_n, dlam_n, ok_n, fac_n = attempt(s, dw_next)
+                _tree_map(lambda new, old: old.copy_(_where(esc, new, old)),
+                          (dw_next, dv_n, dlam_n, ok_n, fac_n),
+                          (s.dw_esc, s.dv, s.dlam, s.ok, s.factors))
+                s.k.add_(esc.to(torch.int32))
+                esc = (~s.ok) & (s.k < 30)
+
+    def loop_inertia(s):
+        """IPOPT-style sequential escalation: dw = 0 first, then
+        0.3 * dw_last, then up by delta_w_up until the factorization
+        succeeds; an instance stops escalating once it has (a batched
+        do-while: the others keep their values).  Leaves in ``s`` the
+        step, its factors and their ``dw_op``."""
+        B, dev = s.v.shape[0], s.v.device
+        dw_op = torch.zeros(B, dtype=s.v.dtype, device=dev)
+        dv = torch.zeros((B, nv), dtype=s.v.dtype, device=dev)
+        dlam = torch.zeros((B, m), dtype=s.v.dtype, device=dev)
+        ok = torch.zeros(B, dtype=torch.bool, device=dev)
+        k = torch.zeros(B, dtype=torch.int32, device=dev)
+        factors = None
+        while True:
+            esc = (~ok) & (k < 30)
+            if not _any(esc):
+                break
+            dw_next = torch.where(
+                k == 0, 0.0,
+                torch.where(dw_op == 0.0,
+                            torch.clamp(0.3 * s.dw_last,
+                                        min=opt.delta_w_min),
+                            dw_op * opt.delta_w_up))
+            dw_next = torch.clamp(dw_next, max=opt.delta_w_max)
+            dv_n, dlam_n, ok_n, fac_n = attempt(s, dw_next)
+            dw_op = _where(esc, dw_next, dw_op)
+            dv = _where(esc, dv_n, dv)
+            dlam = _where(esc, dlam_n, dlam)
+            ok = _where(esc, ok_n, ok)
+            factors = fac_n if factors is None else _tree_map(
+                lambda a, b: _where(esc, a, b), fac_n, factors)
+            k = k + esc.to(torch.int32)
+        s.dw_op, s.dv, s.dlam, s.ok, s.factors = dw_op, dv, dlam, ok, factors
+
+    def step_from(s):
+        """The Newton step on the factors the inertia correction selected:
+        its dual steps, whether it succeeded, the barrier objective's
+        directional derivative and the corrector on those factors.
+        Returns what :func:`compute_step` returns."""
         if opt.inertia == "speculative":
-            # Speculative multi-level inertia correction: factor K at
-            # dw in {0, spec_levels * 0.3*dw_last (, delta_w_max)} in ONE
-            # batched call and keep the first positive-definite level.
-            dw1 = torch.clamp(0.3 * dw_last, min=opt.delta_w_min)
-            dws = torch.stack(
-                [torch.zeros_like(dw1)]
-                + [torch.clamp(m_ * dw1, max=opt.delta_w_max)
-                   for m_ in opt.spec_levels]
-                + ([torch.full_like(dw1, opt.delta_w_max)]
-                   if opt.spec_capstone else []), dim=1)          # (B, L)
-            K_all = K0_f[:, None] \
-                + dws.to(K0_f.dtype)[:, :, None, None] * eye_f
-            fac_all, dK_all, lvl_ok = equil_factor(K_all)
-            lvl = _first_true(lvl_ok)
-            any_lvl = lvl_ok.any(-1)
-            factors_sel = tuple(_take(a, lvl) for a in fac_all) \
-                if isinstance(fac_all, tuple) else _take(fac_all, lvl)
-            dK64 = _take(dK_all, lvl).to(v.dtype)
-            dw_spec = _take(dws, lvl)
-            dv, dlam, solved_ok = solve_with(factors_sel, dK64, dw_spec)
-            ok0 = any_lvl & solved_ok
-            # Escalation above the top level for the instances still
-            # indefinite (a batched while_loop: instances whose condition is
-            # false keep their values); zero trips when all are satisfied.
-            dw_esc = dws[:, -1]
-            ok = ok0
-            k = torch.ones(B, dtype=torch.int32, device=dev)
-            factors = (factors_sel, dK64)
-            with span("ipm.escalation"):
-                while True:
-                    esc = (~ok) & (k < 30)
-                    if not _any(esc):
-                        break
-                    _count_escalation(esc)
-                    dw_next = torch.where(
-                        dw_esc == 0.0, torch.clamp(0.3 * dw_last,
-                                                   min=opt.delta_w_min),
-                        dw_esc * opt.delta_w_up)
-                    dw_next = torch.clamp(dw_next, max=opt.delta_w_max)
-                    dv_n, dlam_n, ok_n, fac_n = attempt(dw_next)
-                    dw_esc = _where(esc, dw_next, dw_esc)
-                    dv = _where(esc, dv_n, dv)
-                    dlam = _where(esc, dlam_n, dlam)
-                    ok = _where(esc, ok_n, ok)
-                    factors = _tree_map(lambda a, b: _where(esc, a, b),
-                                        fac_n, factors)
-                    k = k + esc.to(torch.int32)
             # dw of the SELECTED factors (fed to the corrector's exact KKT
             # operator) vs the value reported to the dw_last heuristic: the
             # capstone level must not ratchet dw_last to delta_w_max.
-            dw_op = torch.where(ok0, dw_spec, dw_esc)
-            dw_rep = dw_spec
+            dw_op = torch.where(s.ok0, s.dw_spec, s.dw_esc)
+            dw_rep = s.dw_spec
             if opt.spec_capstone:
                 dw_rep = torch.where(
-                    lvl == dws.shape[1] - 1,
-                    torch.clamp(opt.delta_w_up * dws[:, -2],
-                                max=opt.delta_w_max), dw_spec)
-            dw_used = torch.where(ok0, dw_rep, dw_esc)
+                    s.lvl == s.dws.shape[1] - 1,
+                    torch.clamp(opt.delta_w_up * s.dws[:, -2],
+                                max=opt.delta_w_max), s.dw_spec)
+            dw_used = torch.where(s.ok0, dw_rep, s.dw_esc)
         else:
-            # IPOPT-style sequential escalation: dw = 0 first, then
-            # 0.3 * dw_last, then up by delta_w_up until the factorization
-            # succeeds; an instance stops escalating once it has (a batched
-            # do-while: the others keep their values).
-            dw_op = torch.zeros(B, dtype=v.dtype, device=dev)
-            dv = torch.zeros((B, nv), dtype=v.dtype, device=dev)
-            dlam = torch.zeros((B, m), dtype=v.dtype, device=dev)
-            ok = torch.zeros(B, dtype=torch.bool, device=dev)
-            k = torch.zeros(B, dtype=torch.int32, device=dev)
-            factors = None
-            while True:
-                esc = (~ok) & (k < 30)
-                if not _any(esc):
-                    break
-                dw_next = torch.where(
-                    k == 0, 0.0,
-                    torch.where(dw_op == 0.0,
-                                torch.clamp(0.3 * dw_last,
-                                            min=opt.delta_w_min),
-                                dw_op * opt.delta_w_up))
-                dw_next = torch.clamp(dw_next, max=opt.delta_w_max)
-                dv_n, dlam_n, ok_n, fac_n = attempt(dw_next)
-                dw_op = _where(esc, dw_next, dw_op)
-                dv = _where(esc, dv_n, dv)
-                dlam = _where(esc, dlam_n, dlam)
-                ok = _where(esc, ok_n, ok)
-                factors = fac_n if factors is None else _tree_map(
-                    lambda a, b: _where(esc, a, b), fac_n, factors)
-                k = k + esc.to(torch.int32)
-            dw_used = dw_op
-
-        dzl = torch.where(hl, mu_dl - zl - sig_l * dv, 0.0)
-        dzu = torch.where(hu, mu_du - zu + sig_u * dv, 0.0)
+            dw_op = dw_used = s.dw_op
+        dv = s.dv
+        dzl = torch.where(s.hl, s.mu_dl - s.zl - s.sig_l * dv, 0.0)
+        dzu = torch.where(s.hu, s.mu_du - s.zu + s.sig_u * dv, 0.0)
         # Sigma can overflow for near-boundary iterates even when dv is
         # finite; a non-finite dual displacement marks the step failed.
-        ok = ok & torch.isfinite(dzl).all(-1) & torch.isfinite(dzu).all(-1)
+        ok = s.ok & torch.isfinite(dzl).all(-1) & torch.isfinite(dzu).all(-1)
         # Directional derivative of the barrier objective along dv.
-        step_dir = (gf * dv[:, :n]).sum(-1) - (mu_dl * dv).sum(-1) \
-            + (mu_du * dv).sum(-1)
+        step_dir = (s.gf * dv[:, :n]).sum(-1) - (s.mu_dl * dv).sum(-1) \
+            + (s.mu_du * dv).sum(-1)
 
         def corrector(rg_soc):
             """Solve the KKT system with rhs (0, rg_soc) on the existing
             factorization (second-order corrections)."""
-            fac, dK64_ = factors
+            fac, dK64_ = s.factors
             with span("ipm.gmres"):
                 if use_gmres_dense:
                     return gmres_solve(
-                        fac, dK64_, dw_op,
-                        torch.cat([torch.zeros_like(rd), -rg_soc], dim=-1),
+                        s, fac, dK64_, dw_op,
+                        torch.cat([torch.zeros_like(s.rd), -rg_soc], dim=-1),
                         max(3, opt.dense_gmres_iters // 2))
-                dv_c = ksolve(fac, dK64_, -_mv(Jt, rg_soc / dc_c))
-                dlam_c = (_mv(J, dv_c) + rg_soc) / dc_c
+                dv_c = ksolve(s, fac, dK64_, -_mv(s.Jt, rg_soc / s.dc_c))
+                dlam_c = (_mv(s.J, dv_c) + rg_soc) / s.dc_c
                 return dv_c, dlam_c
 
-        return dv, dlam, dzl, dzu, step_dir, dw_used, ok, corrector
+        return dv, s.dlam, dzl, dzu, step_dir, dw_used, ok, corrector
+
+    def compute_step(v, lam, zl, zu, mu, dw_last, theta, gf, Jc, rg,
+                     restore, Jtlam64=None):
+        """Condensed-space Newton step for every instance.
+
+        Factors the equilibrated condensed matrix at a speculative ladder
+        of ``dw`` levels in one batched call and keeps, per instance, the
+        first positive-definite level; instances with none escalate above
+        the top level in a loop that updates only them.  ``restore``
+        (B,) bool: feasibility-restoration mode (the caller passes
+        ``gf = 0`` for those instances and the Hessian becomes a proximal
+        identity).  Returns (dv, dlam, dzl, dzu, step_dir, dw_used, ok,
+        corrector).
+        """
+        s = step_operator(v, lam, zl, zu, mu, dw_last, theta, gf, Jc, rg,
+                          restore, Jtlam64)
+        if opt.inertia == "speculative":
+            ladder(s)
+            # Its host reads steer it: a replayed trip runs it eagerly
+            # between two graphs.
+            graphs.eager(escalate, s)
+        else:
+            loop_inertia(s)
+        return step_from(s)
 
     kkt = derivatives.get("kkt")
 
@@ -1047,14 +1098,11 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
         diverged = (be0 <= 1e-4) & (e_0 >= 1e4 * be0) & (e_0 > tol_stop)
         return (e_0 <= tol_stop) | diverged
 
-    def body(state: _State, theta):
-        """One interior-point iteration for every instance."""
-        v, lam, zl, zu, mu, nu = (state.v, state.lam, state.zl, state.zu,
-                                  state.mu, state.nu)
-        dw_last, it = state.dw_last, state.it
-        hl, hu = consts("has_l", v), consts("has_u", v)
-        # One derivative evaluation per iterate, shared by the KKT error,
-        # the Newton step, and the line search.
+    def derivatives_at(state: _State, theta):
+        """One derivative evaluation at the iterate, shared by the KKT
+        error, the Newton step and the line search, and the stop rule's
+        verdict on the iterate."""
+        v, lam = state.v, state.lam
         with span("ipm.derivatives"):
             x = v[:, :n]
             gf = grad_f(x, theta)
@@ -1063,6 +1111,7 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
             restore = state.rmode if opt.restoration \
                 else torch.zeros_like(state.rmode)
             gf_eff = _where(restore, 0.0, gf)
+            Jc = c_vjp = None
             if kkt is not None:
                 # Structured (block-banded) path: matrix-free — the dense
                 # Jacobian is never formed; J^T lam comes from one VJP.
@@ -1077,17 +1126,46 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
             else:
                 Jc = jac_c(x, theta)
                 Jtlam = _mv(Jc.transpose(1, 2), lam)
-            e_0 = kkt_error_pre(gf, Jtlam, rg, v, lam, zl, zu, 0.0)
+            e_0 = kkt_error_pre(gf, Jtlam, rg, v, lam, state.zl, state.zu,
+                                0.0)
             done_now = _stop_rule(e_0, state.be0)
+        return SimpleNamespace(rg=rg, f0=f0, restore=restore, gf_eff=gf_eff,
+                               Jc=Jc, Jtlam=Jtlam, c_vjp=c_vjp, e_0=e_0,
+                               done_now=done_now)
+
+    def body(state: _State, theta):
+        """One interior-point iteration for every instance."""
+        d = derivatives_at(state, theta)
         with span("ipm.step"):
             if kkt is not None:
-                step = compute_step_structured(v, lam, zl, zu, mu, dw_last,
-                                               theta, gf_eff, rg, Jtlam,
-                                               c_vjp, restore)
+                step = compute_step_structured(
+                    state.v, state.lam, state.zl, state.zu, state.mu,
+                    state.dw_last, theta, d.gf_eff, d.rg, d.Jtlam, d.c_vjp,
+                    d.restore)
             else:
-                step = compute_step(v, lam, zl, zu, mu, dw_last, theta,
-                                    gf_eff, Jc, rg, restore,
-                                    Jtlam64=Jtlam if ev32 else None)
+                step = compute_step(
+                    state.v, state.lam, state.zl, state.zu, state.mu,
+                    state.dw_last, theta, d.gf_eff, d.Jc, d.rg, d.restore,
+                    Jtlam64=d.Jtlam if ev32 else None)
+        return advance(state, theta, d, step)
+
+    def trip_in_place(state: _State, theta, active):
+        """The eager trip of :func:`loop_eager`, written in place into
+        ``state`` and ``active``: what ``solver/graphs.py`` replays."""
+        for buf, t in zip(state, merged(active, body(state, theta), state)):
+            buf.copy_(t)
+        active.copy_(still_active(state))
+
+    def advance(state: _State, theta, d, step):
+        """The rest of an iteration from its Newton step: best-iterate
+        tracking, the line search, restoration, and the multiplier, barrier
+        and filter updates.  Returns the new state of every instance."""
+        v, lam, zl, zu, mu, nu = (state.v, state.lam, state.zl, state.zu,
+                                  state.mu, state.nu)
+        dw_last, it = state.dw_last, state.it
+        hl, hu = consts("has_l", v), consts("has_u", v)
+        rg, f0, restore, e_0, done_now = d.rg, d.f0, d.restore, d.e_0, \
+            d.done_now
         dv, dlam, dzl, dzu, gf_dv, dw_used, ok, corrector = step
         # Best-iterate tracking: e_0 is the error of the INCOMING iterate.
         better = e_0 < state.be0
@@ -1312,6 +1390,66 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
                       zero_i, zero_i, zero_i, full(math.inf),
                       v0, lam_init, zl_init, zu_init)
 
+    def still_active(state: _State):
+        return (~state.done) & (state.it < opt.max_iter)
+
+    def merged(active, new: _State, state: _State) -> _State:
+        """The rows of ``new`` where ``active``, of ``state`` elsewhere."""
+        return _State(*(_where(active, a, b) for a, b in zip(new, state)))
+
+    def count_trip(active):
+        count("ipm.trips")
+        count("ipm.rows_computed", active.shape[0])
+        count("ipm.active_rows", active)
+
+    def loop_eager(state: _State, theta, active):
+        """The loop's trips from ``state`` while any row is ``active``; the
+        final state."""
+        go = True
+        while go:
+            with span("ipm.trip"):
+                count_trip(active)
+                state = merged(active, body(state, theta), state)
+                active = still_active(state)
+                go = _any(active)
+        return state
+
+    #: the replayed trips of this solver, one per (device, theta's shape,
+    #: dtype): each trip's static buffers and its graphs
+    replayed = {}
+    replayed_lock = threading.Lock()
+
+    def loop_replayed(state: _State, theta, active):
+        """The loop's trips from ``state`` while any row is ``active``, each
+        a replay of :func:`trip_in_place` on static buffers, which hold one
+        call at a time; the final state."""
+        key = (theta.device, tuple(theta.shape), theta.dtype)
+        with replayed_lock:
+            trip = replayed.get(key)
+            if trip is None:
+                bufs = (_State(*(t.clone() for t in state)), theta.clone(),
+                        active.clone())
+                trip = replayed[key] = SimpleNamespace(
+                    lock=threading.Lock(), bufs=bufs,
+                    replay=graphs.Replay(trip_in_place, *bufs))
+        card = torch.cuda.device(theta.device) \
+            if theta.device.type == "cuda" else nullcontext()
+        with trip.lock, card:
+            static, theta_s, active_s = trip.bufs
+            for buf, t in zip((*static, theta_s, active_s),
+                              (*state, theta, active)):
+                buf.copy_(t)
+            go = True
+            while go:
+                with span("ipm.trip"):
+                    count_trip(active_s)
+                    count("ipm.graph_replays")
+                    if trip.replay.run():
+                        count("ipm.graph_captures", trip.replay.graphs)
+                    go = _any(active_s)
+            # the buffers are overwritten by the next call
+            return _State(*(t.clone() for t in static))
+
     def _run(state0, theta):
         if mixed and theta.device.type == "cuda":
             # The f32 factorization of the 1/dc-conditioned condensed
@@ -1325,18 +1463,11 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
                     "torch.backends.cudnn.allow_tf32 = False and "
                     "torch.set_float32_matmul_precision('highest').")
         state = state0
-        active = (~state.done) & (state.it < opt.max_iter)
-        go = _any(active)
-        while go:
-            with span("ipm.trip"):
-                count("ipm.trips")
-                count("ipm.rows_computed", active.shape[0])
-                count("ipm.active_rows", active)
-                new = body(state, theta)
-                state = _State(*(_where(active, a, b)
-                                 for a, b in zip(new, state)))
-                active = (~state.done) & (state.it < opt.max_iter)
-                go = _any(active)
+        active = still_active(state)
+        if _any(active):
+            loop = loop_replayed if _replays_trip(theta.device, kkt, opt) \
+                else loop_eager
+            state = loop(state, theta, active)
         with span("ipm.certify"):
             final = state
             # Return the best-KKT iterate seen when a near-solution iterate
@@ -1406,3 +1537,15 @@ def _map_blocks(fn, *blocks):
         B=fn(*(b.B for b in blocks)), Gw=fn(*(b.Gw for b in blocks)),
         d_ib=fn(*(b.d_ib for b in blocks)), zmask=first.zmask,
         wmask=first.wmask)
+
+
+def _replays_trip(device: torch.device, kkt, opt: IPMOptions) -> bool:
+    """Whether a solve replays its trips as CUDA graphs
+    (``solver/graphs.py``): on a card, on the dense route (``kkt`` is None)
+    with the speculative ladder, whose one host read inside the step is
+    whether any row escalates.  The block-banded step and the loop inertia
+    read the host before their first factorization, and the CPU has no
+    graphs: they run the eager trip."""
+    return device.type == "cuda" and kkt is None \
+        and opt.inertia == "speculative"
+

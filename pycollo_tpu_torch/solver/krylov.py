@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from .graphs import eager
+
 
 def gmres_right(matvec, precond, rhs, iters: int):
     """Solve ``A x = rhs`` for a batch by right-preconditioned GMRES(iters).
@@ -63,8 +65,10 @@ def gmres_right(matvec, precond, rhs, iters: int):
                                 .sum(-1))
     eye = torch.eye(iters, dtype=dt, device=dev)
     L, info = torch.linalg.cholesky_ex(HtH + ridge[:, None, None] * eye)
-    # H^T e1 is the first row of H.
-    y = torch.cholesky_solve(H[:, 0, :, None], L)[..., 0]
+    # H^T e1 is the first row of H.  On a card the batched solve is
+    # MAGMA's, which allocates device memory: a replayed trip runs it
+    # eagerly between two graphs.
+    y = eager(torch.cholesky_solve, H[:, 0, :, None], L)[..., 0]
     y = torch.where((info == 0)[:, None], y, torch.full_like(y, float("nan")))
     # No finiteness guard here: callers check isfinite on the step.
     x = (V[:, :iters].transpose(1, 2) @ y[:, :, None])[..., 0]

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from .graphs import eager
+
 
 def make_spd_solver(kernel: bool = False):
     """Return (factor, solve, diag) callables for (..., n, n) SPD stacks.
@@ -56,7 +58,9 @@ def make_spd_solver(kernel: bool = False):
     def solve(L, rhs):
         vec = rhs.dim() == L.dim() - 1
         r = rhs[..., None] if vec else rhs
-        y = torch.cholesky_solve(r, L)
+        # On a card a batched solve is MAGMA's, which allocates device
+        # memory: a replayed trip runs it eagerly between two graphs.
+        y = eager(torch.cholesky_solve, r, L)
         return y[..., 0] if vec else y
 
     def diag_of_factor(L):

@@ -95,13 +95,17 @@ def _stack_outputs(vals, args):
     ``(len(vals), *batch)`` tensor.
 
     The dtype is promoted over all the arguments and the device is theirs;
-    constants broadcast to the arguments' common shape."""
+    constants broadcast to the arguments' common shape, filled on the
+    device (a host-to-device copy would wait on the device, which a CUDA
+    graph's capture refuses)."""
     dt = functools.reduce(torch.promote_types, [a.dtype for a in args])
     dev = args[0].device
     shape = torch.broadcast_shapes(*(a.shape for a in args))
     if not vals:
         return torch.zeros((0,) + tuple(shape), dtype=dt, device=dev)
-    return torch.stack([torch.as_tensor(v, dtype=dt, device=dev).expand(shape)
+    return torch.stack([v.to(dtype=dt, device=dev).expand(shape)
+                        if torch.is_tensor(v)
+                        else torch.full(shape, v, dtype=dt, device=dev)
                         for v in vals])
 
 

@@ -40,8 +40,11 @@ sys.path[:0] = [str(ROOT), str(ROOT / "benchmark")]
 import run  # noqa: E402
 
 #: stages whose per-trip host time a trip splits into: (name, "total" or
-#: "self"); with the self times of the rest they add up to ``ipm.solve``
-STAGES = (("ipm.derivatives", "total"), ("ipm.step", "self"),
+#: "self"); with the self times of the rest they add up to ``ipm.solve``.
+#: On a card the trip's graphs are ``ipm.replay`` and the stages inside
+#: them record only when the warm-up call captures them.
+STAGES = (("ipm.replay", "total"),
+          ("ipm.derivatives", "total"), ("ipm.step", "self"),
           ("ipm.gmres", "total"), ("ipm.line_search", "self"),
           ("ipm.wait", "total"), ("ipm.factor", "self"),
           ("ipm.escalation", "self"), ("ipm.restoration", "self"),
