@@ -24,7 +24,7 @@ import threading
 
 import torch
 
-from ..profiling import bump
+from ..profiling import bump, span
 from . import _build
 
 #: largest matrix the kernel takes: its shared memory (at most 112 KB, so
@@ -46,6 +46,12 @@ def _count_launch() -> None:
 def _count_call() -> None:
     with _count_lock:
         blocked_chol_linv.calls += 1
+
+
+def _count_blocks(blocks: int, products: int) -> None:
+    with _count_lock:
+        _counted.blocks += blocks
+        _counted.products += products
 
 
 def _check_stack(A: torch.Tensor) -> None:
@@ -142,7 +148,10 @@ def blocked_chol_linv(A: torch.Tensor, block: int | None = None):
     axes are folded into the kernel's batch.  A non-PD instance yields NaN
     in its diagonal-block inverse, which propagates through every later
     product of that instance.  Each call counts one in
-    ``blocked_chol_linv.calls``.
+    ``blocked_chol_linv.calls``, its diagonal blocks in
+    ``blocked_chol_linv.blocks`` and its batched matrix products in
+    ``blocked_chol_linv.products`` (1 and 0 for one block); the blocks
+    run inside the span ``block_chol.blocked``.
     """
     *batch, n, n2 = A.shape
     if n != n2:
@@ -156,12 +165,24 @@ def blocked_chol_linv(A: torch.Tensor, block: int | None = None):
     B = 1
     for d in batch:
         B *= d
-    dev = A.device
     Af = A.reshape(B, n, n).to(torch.float32)
     bump(_count_call)
     if n_pad == n == block:
         Linv, diag_L = chol_inv(Af.contiguous(), return_diag=True)
+        bump(_count_blocks, 1, 0)
         return diag_L.reshape(*batch, n), Linv.reshape(*batch, n, n)
+    with span("block_chol.blocked"):
+        diag_L, Linv = _blocked(Af, B, n, n_pad, nb, block)
+    return (diag_L.reshape(*batch, n),
+            Linv.reshape(*batch, n, n))
+
+
+def _blocked(Af: torch.Tensor, B: int, n: int, n_pad: int, nb: int,
+             block: int):
+    """:func:`blocked_chol_linv` of the (B, n, n) float32 stack ``Af`` in
+    ``nb`` blocks of ``block`` (n_pad = nb * block): ``(diag_L, Linv)``,
+    (B, n) and (B, n, n)."""
+    dev = Af.device
     if n_pad != n:
         P = torch.zeros((B, n_pad, n_pad), dtype=torch.float32, device=dev)
         P[:, :n, :n] = Af
@@ -177,14 +198,17 @@ def blocked_chol_linv(A: torch.Tensor, block: int | None = None):
     work = {(i, j): blk(i, j) for i in range(nb) for j in range(i + 1)}
     L = [[None] * nb for _ in range(nb)]
     Dinv = [None] * nb
+    products = 0
     for j in range(nb):
         Dinv[j] = chol_inv(work[(j, j)].contiguous())
         for i in range(j + 1, nb):
             # L_ij = A'_ij @ L_jj^{-T}
             L[i][j] = work[(i, j)] @ Dinv[j].transpose(-1, -2)
+            products += 1
         for i in range(j + 1, nb):
             for k in range(j + 1, i + 1):
                 work[(i, k)] = work[(i, k)] - L[i][j] @ L[k][j].transpose(-1, -2)
+                products += 1
 
     # Block triangular inversion:
     # Linv_jj = Dinv_j;  Linv_ij = -Dinv_i (sum_{k=j}^{i-1} L_ik Linv_kj)
@@ -196,6 +220,7 @@ def blocked_chol_linv(A: torch.Tensor, block: int | None = None):
             for k in range(j + 1, i):
                 acc = acc + L[i][k] @ Linv_blocks[k][j]
             Linv_blocks[i][j] = -(Dinv[i] @ acc)
+            products += i - j + 1
 
     Linv = torch.zeros((B, n_pad, n_pad), dtype=torch.float32, device=dev)
     for i in range(nb):
@@ -205,12 +230,21 @@ def blocked_chol_linv(A: torch.Tensor, block: int | None = None):
     # diag(L_jj) = 1 / diag(L_jj^{-1})
     dinv_diag = torch.cat([torch.diagonal(Dinv[j], dim1=-2, dim2=-1)
                            for j in range(nb)], dim=-1)[:, :n]
-    diag_L = 1.0 / dinv_diag
-    return (diag_L.reshape(*batch, n),
-            Linv.reshape(*batch, n, n))
+    bump(_count_blocks, nb, products)
+    return 1.0 / dinv_diag, Linv
 
 
 #: calls since the last reset (a counter, counted under a lock and once per
 #: replay of a graph that holds the call: with ``chol_inv.launches`` it
 #: gives the kernel launches per factorization)
 blocked_chol_linv.calls = 0
+#: diagonal blocks factored, one kernel launch each, and batched matrix
+#: products of the block algebra, since the last reset (counted as
+#: ``calls``)
+blocked_chol_linv.blocks = 0
+blocked_chol_linv.products = 0
+#: the function that holds ``blocks`` and ``products``, bound once: a
+#: stand-in that takes ``blocked_chol_linv``'s name in this module and
+#: passes calls on (as ``chip_smoke.py``'s does) is counted in ``calls``,
+#: and these two counters stay on the function itself
+_counted = blocked_chol_linv

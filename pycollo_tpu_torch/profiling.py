@@ -30,6 +30,8 @@ The stages of a batched solve, as they nest::
         ipm.step                 Newton step; self: Hessian, assembly,
                                  level selection, dual steps
           ipm.factor             an equilibrated factorization
+            block_chol.blocked   the factorization of a matrix wider than
+                                 one kernel launch, in blocks
           ipm.gmres              a KKT solve on the factors
           ipm.escalation         the loop above the speculative ladder
             ipm.wait, ipm.factor, ipm.gmres
@@ -53,9 +55,14 @@ rows still iterating, every trip), ``ipm.escalation_trips``,
 ``ipm.escalation_rows_factored`` (the batch, every escalation trip),
 ``ipm.escalation_rows`` (the rows that escalate, every escalation trip),
 ``ipm.graph_captures`` (graphs captured) and ``ipm.graph_replays`` (trips
-run by replaying graphs).  The counts of code inside a graph are made at
-its capture on a tape (:func:`taping`), and each replay makes them again
-(:func:`replay`), so a replayed trip counts what an eager one counts.
+run by replaying graphs).  The package's own counters live on its
+functions and outside any recording: ``blocked_chol_linv.calls``,
+``.blocks`` (diagonal blocks factored, one kernel launch each) and
+``.products`` (batched matrix products of the block algebra) in
+``ops/block_chol.py``, and ``chol_inv.launches``.  The counts of code
+inside a graph are made at its capture on a tape (:func:`taping`), and
+each replay makes them again (:func:`replay`), so a replayed trip counts
+what an eager one counts.
 
 :class:`Profiler` times a mesh iteration's set-up stages
 (``transcription.py``) into its own ``spans``; its spans are spans of this

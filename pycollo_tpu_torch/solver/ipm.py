@@ -61,6 +61,16 @@ from . import graphs
 from .banded import ArrowBlocks, PhaseBand, _mv
 from .krylov import gmres_right
 
+#: the spread of scales that the mixed path's float32 factorization of
+#: ``W + J^T J / dc`` keeps apart: float32's 24 bits less 3 to spare.  Where
+#: ``J^T J / dc`` outgrows ``W`` by more, the rounding of the f32 matrix
+#: swamps ``W`` and no ``dw`` level factors it (see ``step_operator``).
+F32_SCALE_SPREAD = 2.0 ** 21
+#: the most that rule raises dc, in multiples of ``dc_floor``: where W has
+#: almost no scale the ratio has no bound of its own, and a dc far above
+#: the floor would leave the factored matrix blind to the constraints
+DC_LIFT_MAX = 1.0e4
+
 
 @dataclass(frozen=True)
 class IPMOptions:
@@ -103,7 +113,9 @@ class IPMOptions:
     #: floor for the dual regularization dc = max(1e-8 * mu^(1/4),
     #: dc_floor).  The mixed-precision path raises it (e.g. 1e-7): a larger
     #: dc caps the condition number of the condensed matrix at ~1/dc, which
-    #: is what makes an f32 factorization converge.
+    #: is what makes an f32 factorization converge; it raises it further per
+    #: instance where J^T J / dc would outgrow W by more than
+    #: F32_SCALE_SPREAD, to at most DC_LIFT_MAX times this floor.
     dc_floor: float = 1e-12
     #: dual-regularization floor for the block-banded path, capped at
     #: 0.1 * tol.  Its factorization carries the low-rank integral columns
@@ -503,7 +515,23 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
             W0_fc = W0
         Jt_fc = J_fc.transpose(1, 2)
         eye_f = torch.eye(nv, dtype=J_fc.dtype, device=dev)
-        K0_f = W0_fc + (Jt_fc @ J_fc) / dc.to(J_fc.dtype)[:, None, None]
+        JtJ = Jt_fc @ J_fc
+        if mixed:
+            # The floor is relative to the problem's scales: J^T J / dc
+            # (its scale, J^T J's largest diagonal entry, over dc) may
+            # outgrow W's (its largest diagonal entry) by at most
+            # F32_SCALE_SPREAD, or the f32 factorization loses W; it rises
+            # to at most DC_LIFT_MAX times the set floor.  Outside
+            # restoration (whose W is a proximal identity) and where W has
+            # a scale; ``fmax`` keeps dc where the ratio is NaN.
+            jscale = torch.diagonal(JtJ, dim1=-2, dim2=-1).amax(-1)
+            wscale = torch.diagonal(W0, dim1=-2, dim2=-1).abs().amax(-1)
+            lift = torch.clamp(
+                jscale.to(v.dtype) / (F32_SCALE_SPREAD * wscale),
+                max=DC_LIFT_MAX * opt.dc_floor)
+            dc = torch.fmax(dc, _where(restore | (wscale == 0.0), 0.0,
+                                       lift))
+        K0_f = W0_fc + JtJ / dc.to(J_fc.dtype)[:, None, None]
         return SimpleNamespace(
             v=v, zl=zl, zu=zu, dw_last=dw_last, gf=gf, rg=rg, hl=hl, hu=hu,
             sig_l=sig_l, sig_u=sig_u, mu_dl=mu_dl, mu_du=mu_du, W0=W0, J=J,
@@ -641,7 +669,9 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
                           (dw_next, dv_n, dlam_n, ok_n, fac_n),
                           (s.dw_esc, s.dv, s.dlam, s.ok, s.factors))
                 s.k.add_(esc.to(torch.int32))
-                esc = (~s.ok) & (s.k < 30)
+                # a row whose attempt at delta_w_max failed stops: another
+                # attempt would factor the same matrix and fail the same
+                esc = (~s.ok) & (s.k < 30) & (s.dw_esc < opt.delta_w_max)
 
     def loop_inertia(s):
         """IPOPT-style sequential escalation: dw = 0 first, then

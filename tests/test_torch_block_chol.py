@@ -182,6 +182,77 @@ def test_blocked_default_splits_into_the_fewest_blocks():
     np.testing.assert_allclose(d.numpy(), diag64, rtol=TOL, atol=TOL)
 
 
+def test_blocked_768_is_five_blocks_of_154_and_counts_them():
+    """n = 768 (the shuttle benchmark's n_free): five blocks of 154, padded
+    to 770 with the identity, against f64; the first diagonal block is the
+    plain version's inverse of A's corner, bit for bit; the call counts 5
+    blocks and 60 products (10
+    panels, 20 trailing updates, 30 in the block inversion).  A matrix of
+    one block counts 1 and 0."""
+    rng = np.random.default_rng(768)
+    A = _equilibrated_spd(rng, 2, 768)
+    Linv64, diag64 = _f64_linv(A)
+    before = (blocked_chol_linv.calls, blocked_chol_linv.blocks,
+              blocked_chol_linv.products)
+    d, L = blocked_chol_linv(torch.tensor(A))
+    after = (blocked_chol_linv.calls, blocked_chol_linv.blocks,
+             blocked_chol_linv.products)
+    assert [a - b for a, b in zip(after, before)] == [1, 5, 60]
+    np.testing.assert_allclose(L.numpy(), Linv64, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(d.numpy(), diag64, rtol=TOL, atol=TOL)
+    corner = chol_inv_reference(torch.tensor(A[:, :154, :154]))
+    assert torch.equal(L[:, :154, :154], corner)
+    iu = np.triu_indices(768, k=1)
+    assert np.all(L.numpy()[:, iu[0], iu[1]] == 0.0)
+    before = after
+    blocked_chol_linv(torch.tensor(A[:, :148, :148]))
+    after = (blocked_chol_linv.calls, blocked_chol_linv.blocks,
+             blocked_chol_linv.products)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 0]
+
+
+class _PassOn:
+    """A stand-in for ``blocked_chol_linv`` as ``chip_smoke.py``'s is: it
+    takes the function's name in ``block_chol``, passes every call on and
+    holds ``calls`` alone."""
+
+    def __init__(self, blocked):
+        self.blocked = blocked
+        self.calls = 0
+
+    def __call__(self, A, block=None):
+        return self.blocked(A, block)
+
+
+def test_block_counters_stay_on_the_function_under_a_stand_in(monkeypatch):
+    """With a stand-in in its name, a call counts in the stand-in's
+    ``calls`` and in the function's own ``blocks`` and ``products``,
+    eagerly and through a replayed tape, at two blocks and at one."""
+    from pycollo_tpu_torch import profiling
+    from pycollo_tpu_torch.ops import block_chol
+    rng = np.random.default_rng(192)
+    wide = torch.tensor(_equilibrated_spd(rng, 2, 192))
+    narrow = wide[:, :96, :96]
+    fn = blocked_chol_linv
+    stand_in = _PassOn(fn)
+    monkeypatch.setattr(block_chol, "blocked_chol_linv", stand_in)
+
+    def counts():
+        return (stand_in.calls, fn.blocks, fn.products)
+
+    before = counts()
+    block_chol.blocked_chol_linv(wide)
+    block_chol.blocked_chol_linv(narrow)
+    eager = [a - b for a, b in zip(counts(), before)]
+    assert eager == [2, 3, 4]
+    with profiling.taping() as tape:
+        block_chol.blocked_chol_linv(wide)
+        block_chol.blocked_chol_linv(narrow)
+    before = counts()
+    profiling.replay(tape)
+    assert [a - b for a, b in zip(counts(), before)] == eager
+
+
 def test_bound_counts_the_lower_triangle_read():
     """The kernel reads n (n + 1) / 2 floats of each matrix and writes n^2
     (and n of diag(L)); 2 n^3 / 3 flops bound it only at large n."""

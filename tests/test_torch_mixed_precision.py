@@ -32,6 +32,7 @@ sys.path.insert(0, str(ROOT / "examples"))
 from cart_pole_swing_up_torch import build_problem  # noqa: E402
 from pycollo_tpu_torch.ops.block_chol import chol_inv  # noqa: E402
 from pycollo_tpu_torch.parallel.batch import solve_batched  # noqa: E402
+from pycollo_tpu_torch.solver import ipm as ipm_mod  # noqa: E402
 from pycollo_tpu_torch.solver.ipm import IPMOptions  # noqa: E402
 
 torch.set_num_threads(2)
@@ -41,6 +42,9 @@ OPTIONS = {prec: dict(tol=1e-6, max_iter=80, kkt_precision=prec,
                       dc_floor=1e-7 if prec == "mixed" else 1e-12,
                       ir_rounds=3)
            for prec in ("f64", "mixed")}
+#: the benchmark sweep's mixed route (f32 assembly, GMRES(12))
+SWEEP = dict(tol=1e-6, max_iter=80, kkt_precision="mixed", dc_floor=1e-7,
+             dense_gmres_iters=12, eval_dtype="f32")
 #: mesh sections and batch size per case
 CASES = {"tiny": (2, 4), "default": (10, 8), "cuda": (10, 8)}
 
@@ -113,6 +117,29 @@ def test_cart_pole_mixed_precision_batch(case):
     _gates("JAX mixed", port["mixed"], ref["mixed"])
     # the two f64 paths take exact Newton steps from the same start
     np.testing.assert_allclose(port["f64"], ref["f64"], rtol=1e-8)
+
+
+@pytest.mark.parametrize("route", ["sweep", "reference"])
+def test_cart_pole_dc_stays_at_the_set_floor(route, monkeypatch):
+    """The mixed route raises dc where J^T J / dc would outgrow W by more
+    than ``F32_SCALE_SPREAD``; on cart-pole (default mesh) it never does:
+    the solve with the raise capped at nothing is the same bit for bit."""
+    kw = SWEEP if route == "sweep" else OPTIONS["mixed"]
+    problem = _build(build_problem, 10)
+    theta = _theta(problem.backend.mesh_iterations[0], 4)
+
+    def solve():
+        return solve_batched(problem.backend, theta_batch=theta,
+                             options=IPMOptions(**kw),
+                             devices=[torch.device("cpu")])
+
+    res = solve()
+    monkeypatch.setattr(ipm_mod, "DC_LIFT_MAX", 0.0)
+    fixed = solve()
+    assert np.asarray(res.converged).all()
+    for k in ("x_full", "iterations", "converged", "kkt_error"):
+        assert np.array_equal(np.asarray(getattr(res, k)),
+                              np.asarray(getattr(fixed, k))), k
 
 
 @pytest.mark.cuda
